@@ -10,19 +10,30 @@ package. Phases, each of which fails the run:
 1. build            compile every hand-written kernel from csrc/ (one nvcc
                     per source, all started together) and print the seconds;
 2. kernel:dbscan    the DBSCAN kernel against its plain PyTorch version on
-                    the card, labels exactly equal, at N = 1024 on the
-                    slice's class inputs and on a > 64-hop chain; times of
-                    both and the card's bound for the same work;
+                    the card, labels exactly equal, at N = 1024: each of the
+                    largest keyframe's four problems and a > 64-hop chain
+                    alone (one stage), and the keyframe's [2, 1024] batch in
+                    the one two-stage launch the frontend makes (also with
+                    the chain as a third set); kernel
+                    times from CUDA graphs (no host in the way), the
+                    empty-kernel floor of the same launch shape, the plain
+                    version's time and the card's bound for the same work;
 3. slice:raw_lidar_solo  the raw-LiDAR single-robot mission at full width
                     (120 trees + 20 poles, 150 keyframes, 64x1024 range
                     image, forest config at mission capacity) through
                     LidarFrontend -> SlamNode.process_keyframe, with the
-                    launch counts reset just before and read just after;
+                    launch counts reset just before and read just after:
+                    one DBSCAN launch per keyframe with a clustered class;
 4. card_vs_cpu      the first 8 keyframes again with device="cpu": match
                     indices identical, poses within 1e-3.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
-the line {"ok": true, "device": {...}}.
+the line {"ok": true, "device": {...}}. In the kernels line, `launches` is
+the mission's DBSCAN launch count (one per scan), `ms` the device time of
+one per-scan launch (both classes, both stages) of the largest keyframe,
+`floor_ms` an empty kernel's of the same launch shape, `plain_ms` the plain
+version's time for the same batch on the card, `bound_ms` the card's least
+time for the four problems' work.
 """
 import json
 import math
@@ -130,7 +141,46 @@ def slice_inputs(mission, k):
     return out
 
 
+def graph_ms(fn, per_graph=20, reps=10):
+    """Device time per call of `fn`, with no host in the way: `per_graph`
+    calls captured in one CUDA graph, replayed `reps` times between two
+    events. `fn` must not copy from the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                    # first launch sets the kernel's attributes
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * per_graph)
+
+
+def dbscan_bound(ops, nbytes):
+    t_ops, t_bytes = ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def phase_kernel(mission):
+    """The kernel against the plain version on the card: each of the largest
+    keyframe's four DBSCAN problems (and the chain) alone, one stage, and the
+    keyframe's [2, 1024] batch in the one two-stage launch the frontend
+    makes, labels exactly equal. Times from CUDA graphs (kernel) and
+    events around eager calls (plain), the empty-kernel floor of the same
+    launch shape, and the card's bound for the same work."""
     import torch
     from slide_slam_tpu_torch.frontend import clustering
     from slide_slam_tpu_torch.frontend.pipeline import forest_classes
@@ -139,11 +189,14 @@ def phase_kernel(mission):
     k = max(range(len(mission.scans)), key=lambda i: len(mission.scans[i]))
     inputs = slice_inputs(mission, k)
     specs = {c.name: c for c in forest_classes() if c.model == "cylinder"}
-    problems = []
+    cuda = lambda a: torch.as_tensor(a, device="cuda")
+    problems, batch = [], []
     for name, (pad, valid) in inputs.items():
         s = specs[name]
-        p = torch.as_tensor(pad, device="cuda")
-        v = torch.as_tensor(valid, device="cuda")
+        p, v = cuda(pad), cuda(valid)
+        params = clustering.stage_params(s.eps_noise, s.min_samples_noise,
+                                         s.eps_cluster, s.min_samples_cluster)
+        batch.append((p, v, cuda(params)))
         problems.append((f"{name}/noise", p, v, s.eps_noise,
                          s.min_samples_noise))
         lab1 = clustering.dbscan_reference(p, v, s.eps_noise,
@@ -152,7 +205,7 @@ def phase_kernel(mission):
                          s.eps_cluster, s.min_samples_cluster))
     chain = np.zeros((1024, 3), np.float32)
     chain[:, 0] = 40.0 + 0.5 * np.arange(1024)
-    problems.append(("chain>64hops", torch.as_tensor(chain, device="cuda"),
+    problems.append(("chain>64hops", cuda(chain),
                      torch.ones(1024, dtype=torch.bool, device="cuda"), 0.6,
                      2))
 
@@ -161,29 +214,58 @@ def phase_kernel(mission):
         got = clustering.dbscan_cuda(p, v, eps, ms)
         ref = clustering.dbscan_reference(p, v, eps, ms)
         torch.cuda.synchronize()
-        err = int((got.long() - ref.long()).abs().max())
-        max_err = max(max_err, err)
+        max_err = max(max_err, int((got.long() - ref.long()).abs().max()))
         check(torch.equal(got, ref),
               f"dbscan kernel != plain on {name}: {int((got != ref).sum())} "
               "labels differ")
-        k_ms = cuda_ms(lambda: clustering.dbscan_cuda(p, v, eps, ms), 50)
+        one = cuda(clustering.stage_params(eps, ms))[None]
+        k_ms = graph_ms(lambda: clustering.launch_dbscan(
+            p[None], v[None], one, stages=1))
         p_ms = cuda_ms(lambda: clustering.dbscan_reference(p, v, eps, ms), 5)
         ops = dbscan_work(p, v, eps, ms)
-        nbytes = 1024 * (12 + 4 + 4)
-        bound = max(ops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-        by = ("operations" if ops / F32_PEAK_FLOPS >= nbytes / HBM_BYTES_PER_S
-              else "bytes")
+        bound, by = dbscan_bound(ops, 1024 * (12 + 1 + 4) + 16)
         rows.append(dict(problem=name, valid=int(v.sum()), kernel_ms=k_ms,
-                         plain_ms=p_ms, bound_ms=bound, bound_by=by,
-                         ops=ops))
+                         plain_ms=p_ms, bound_ms=bound, bound_by=by, ops=ops))
         print(f"[kernel:dbscan] {name:18s} valid={int(v.sum()):4d} "
               f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
               f"bound {bound:.6f} ms ({by}, {ops} ops)  labels equal")
+
+    # the scan's batch: both classes, both stages, one launch
+    pts = torch.stack([b[0] for b in batch])
+    valid = torch.stack([b[1] for b in batch])
+    params = torch.stack([b[2] for b in batch])
+    got = clustering.two_stage_cluster_batch(pts, valid, params)
+    ref = clustering.two_stage_cluster_reference(pts, valid, params)
+    torch.cuda.synchronize()
+    max_err = max(max_err, int((got.long() - ref.long()).abs().max()))
+    check(torch.equal(got, ref), "batched dbscan kernel != plain on the "
+          f"scan's batch: {int((got != ref).sum())} labels differ")
+    # the > 64-hop chain as a third set of a batch, both stages
+    _, cp, cv, _, _ = problems[-1]
+    three = (torch.stack([pts[0], pts[1], cp]),
+             torch.stack([valid[0], valid[1], cv]),
+             torch.cat([params, cuda(clustering.stage_params(
+                 0.6, 2, 0.6, 2))[None]]))
+    got3 = clustering.two_stage_cluster_batch(*three)
+    ref3 = clustering.two_stage_cluster_reference(*three)
+    torch.cuda.synchronize()
+    check(torch.equal(got3, ref3), "batched dbscan kernel != plain with the "
+          f"chain: {int((got3 != ref3).sum())} labels differ")
+    scan_ms = graph_ms(lambda: clustering.launch_dbscan(pts, valid, params))
+    floor_ms = graph_ms(lambda: clustering.launch_empty(len(batch)))
+    plain_ms = cuda_ms(lambda: clustering.two_stage_cluster_reference(
+        pts, valid, params), 5)
     slice_rows = [r for r in rows if not r["problem"].startswith("chain")]
-    mean = lambda key: float(np.mean([r[key] for r in slice_rows]))
-    return dict(max_abs_err=max_err, ms=mean("kernel_ms"),
-                plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
-                bound_by=slice_rows[0]["bound_by"], problems=rows)
+    ops = sum(r["ops"] for r in slice_rows)
+    bound, by = dbscan_bound(ops, pts.numel() * 4 + valid.numel()
+                             + params.numel() * 4 + got.numel() * 4)
+    cluster = clustering.auto_cluster_size()
+    print(f"[kernel:dbscan] scan batch [2, 1024] x 2 stages, one launch "
+          f"(cluster {cluster}): kernel {scan_ms:.4f} ms  "
+          f"empty-kernel floor {floor_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"bound {bound:.6f} ms ({by}, {ops} ops)  labels equal")
+    return dict(max_abs_err=max_err, ms=scan_ms, floor_ms=floor_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by, problems=rows)
 
 
 def run_mission(mission, device, n_keyframes, record):
@@ -236,18 +318,18 @@ def phase_slice(mission):
         per_kf.append(dict(
             fe_s=fe_s, be_s=be_s, counts=counts,
             n_meas=len(obs.get("cyl_root", [])),
-            expected=2 * sum(n >= min_cluster[c] for c, n in counts.items()),
+            expected=int(any(n >= min_cluster[c] for c, n in counts.items())),
             matches=node.last_step.cyl_matches.cpu().numpy(),
             pose=node.last_step.pose.cpu().numpy()))
 
     n = len(mission.scans)
     torch.cuda.synchronize()
-    clustering.dbscan_cuda.launches = 0
+    clustering.launch_dbscan.launches = 0
     t0 = time.perf_counter()
     node, cfg = run_mission(mission, "cuda", n, record)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = clustering.dbscan_cuda.launches
+    launches = clustering.launch_dbscan.launches
 
     every = cfg.solver.full_solve_every
     full_kf = [i for i in range(n) if every and (i + 1) % every == 0]
@@ -343,7 +425,7 @@ def main():
         "replaces": "slide_slam_tpu/frontend/clustering_pallas.py:29",
         "launches": stats["dbscan_launches"],
         "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "kernel_ms": kern["ms"],
+        "ms": kern["ms"], "floor_ms": kern["floor_ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": None,
     }]}))

@@ -6,8 +6,10 @@ Per segmented scan (world frame):
 
 1. range gating,
 2. ground points from the ground class,
-3. per cylinder class: two-stage DBSCAN (the CUDA kernel on the card) ->
-   instances -> batched cylinder fit against local RANSAC ground patches,
+3. two-stage DBSCAN of every cylinder class with at least
+   min_samples_cluster points (on the card: one copy up, one launch of the
+   CUDA kernel, one copy back), then per class: instances -> batched
+   cylinder fit against local RANSAC ground patches,
 4. conversion to body-frame measurements for the backend keyframe.
 
 The cuboid branch (bbox seeds, tracker, PCA cuboid fit) is not ported yet:
@@ -132,24 +134,47 @@ class ProcessCloudPipeline:
                       if ground_spec is not None
                       else np.zeros((0, 3), np.float32))
         self.class_points = {}
+        clustered = []
         for spec in cfg.classes:
             if spec.model == "ground":
                 continue
             pts = xyz[rng_ok & (point_labels == spec.label)]
             self.class_points[spec.name] = len(pts)
-            if len(pts) < spec.min_samples_cluster:
-                continue
-            pad, mask = _pad_points(pts, cfg.max_points_per_class)
-            labels = clustering.two_stage_cluster(
-                self._t(pad), self._t(mask), spec.eps_noise,
-                spec.min_samples_noise, spec.eps_cluster,
-                spec.min_samples_cluster).cpu().numpy()
-            instances = self._instances_from_labels(pad[:len(pts)],
-                                                    labels[:len(pts)])
+            if len(pts) >= spec.min_samples_cluster:
+                clustered.append((spec, pts))
+        labels = self._cluster(clustered)
+        for (spec, pts), lab in zip(clustered, labels):
+            k = min(len(pts), cfg.max_points_per_class)
+            instances = self._instances_from_labels(pts[:k], lab[:k])
             if instances:
                 self._fit_cylinders(spec, instances, ground_pts, obs)
         self.scan_idx += 1
         return self._to_body_frame(obs, sensor_pose7)
+
+    def _cluster(self, clustered) -> np.ndarray:
+        """Two-stage DBSCAN labels [C, N] of the classes' points, padded to
+        N = max_points_per_class: one copy to the device, one launch for
+        every class and both stages, one copy back."""
+        C, N = len(clustered), self.cfg.max_points_per_class
+        if not C:
+            return np.zeros((0, N), np.int32)
+        # points f32 [C, N, 3] | params f32 [C, 4] | valid bool [C, N]
+        n_pts, n_par = C * N * 12, C * 16
+        host = np.zeros(n_pts + n_par + C * N, np.uint8)
+        pts = host[:n_pts].view(np.float32).reshape(C, N, 3)
+        params = host[n_pts:n_pts + n_par].view(np.float32).reshape(C, 4)
+        valid = host[n_pts + n_par:].view(bool).reshape(C, N)
+        for c, (spec, p) in enumerate(clustered):
+            pts[c], valid[c] = _pad_points(p, N)
+            params[c] = clustering.stage_params(
+                spec.eps_noise, spec.min_samples_noise, spec.eps_cluster,
+                spec.min_samples_cluster)
+        buf = torch.from_numpy(host).to(self.device)
+        labels = clustering.two_stage_cluster_batch(
+            buf[:n_pts].view(torch.float32).view(C, N, 3),
+            buf[n_pts + n_par:].view(torch.bool).view(C, N),
+            buf[n_pts:n_pts + n_par].view(torch.float32).view(C, 4))
+        return labels.cpu().numpy()
 
     def _fit_cylinders(self, spec: ClassSpec, instances, ground_pts, obs):
         cfg = self.cfg

@@ -5,10 +5,13 @@ Cases: blobs; a full N = 1024 class; a chain longer than 64 hops (neither
 version converges within its 64 sweeps, and the synchronous sweeps must
 still agree); all points invalid; the (eps, min_samples) pairs of the
 slice's four DBSCAN stages (tree and lightpole, noise and cluster; three
-distinct pairs).
+distinct pairs). For the batched two-stage call: a batch of such sets
+with valid flags that are not a prefix, a 176-point class and the chain, and
+a [2, 1024] batch shaped like a scan's.
 """
 import numpy as np
 
+from slide_slam_tpu_torch.frontend.clustering import stage_params
 from slide_slam_tpu_torch.frontend.pipeline import forest_classes
 
 # (eps, min_samples) of the two DBSCAN stages of the slice's classes
@@ -72,3 +75,53 @@ def _cases():
 
 
 CASES = list(_cases())
+
+
+def class_params(name):
+    """(eps_noise, ms_noise, eps_cluster, ms_cluster) of a slice class."""
+    c = next(c for c in forest_classes() if c.name == name)
+    return (c.eps_noise, c.min_samples_noise, c.eps_cluster,
+            c.min_samples_cluster)
+
+
+def scattered(n=256):
+    """Two blobs whose valid flags are not a prefix: every third row and
+    20 random rows are invalid."""
+    rng = np.random.default_rng(7)
+    pts = np.zeros((n, 3), np.float32)
+    pts[:] = np.concatenate([rng.normal([45, 50, 1], 0.25, (n // 2, 3)),
+                             rng.normal([52, 44, 2], 0.3, (n - n // 2, 3))])
+    valid = np.ones(n, bool)
+    valid[::3] = False
+    valid[rng.integers(0, n, 20)] = False
+    return pts, valid
+
+
+def two_stage_batch(n=256):
+    """[(name, (points [n, 3], valid [n]), (eps_1, ms_1, eps_2, ms_2))] for
+    one batched two-stage call: the slice's three (eps, min_samples) pairs
+    (tree and lightpole classes), valid flags that are not a prefix, a
+    176-point class and the > 64-hop chain."""
+    tree_pts, _ = trees(n=2048, seed=5)
+    return [
+        ("tree", trees(n=n, seed=4), class_params("tree")),
+        ("lightpole_176", pad(tree_pts[:176], n), class_params("lightpole")),
+        ("scattered_valid", scattered(n), class_params("tree")),
+        ("chain_gt_64_hops", chain(n), (0.6, 2, 0.6, 2)),
+    ]
+
+
+def slice_batch():
+    """A [2, 1024] batch shaped like a scan's: a full tree class and a
+    176-point lightpole class, each with its class's parameters."""
+    tree_pts, _ = trees(n=2048, seed=6)
+    return [("tree", trees(), class_params("tree")),
+            ("lightpole_176", pad(tree_pts[:176], 1024),
+             class_params("lightpole"))]
+
+
+def stack(batch):
+    """points [C, n, 3], valid [C, n], params [C, 4] of a batch."""
+    return (np.stack([p for _, (p, _), _ in batch]),
+            np.stack([v for _, (_, v), _ in batch]),
+            np.stack([stage_params(*a) for _, _, a in batch]))

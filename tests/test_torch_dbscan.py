@@ -19,7 +19,8 @@ from slide_slam_tpu.frontend.clustering_pallas import dbscan_pallas
 from slide_slam_tpu_torch.frontend import clustering as tclust
 from slide_slam_tpu_torch.frontend.pipeline import forest_classes
 
-from _dbscan_cases import CASES, chain, trees
+from _dbscan_cases import (CASES, SLICE_PARAMS, chain, stack, trees,
+                           two_stage_batch)
 
 
 def _jax(pts, valid, eps, ms):
@@ -71,3 +72,42 @@ def test_two_stage_matches_jax():
 def test_wrapper_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError):
         tclust.dbscan_cuda(torch.zeros(8, 3), torch.ones(8, dtype=bool), 1.0, 2)
+    with pytest.raises(ValueError):
+        tclust.launch_dbscan(torch.zeros(1, 8, 3), torch.ones(1, 8, dtype=bool),
+                             torch.zeros(1, 4))
+
+
+BATCH = two_stage_batch()
+
+
+@pytest.fixture(scope="module")
+def batch_labels():
+    pts, valid, params = stack(BATCH)
+    before = tclust.launch_dbscan.launches
+    got = tclust.two_stage_cluster_batch(torch.as_tensor(pts),
+                                         torch.as_tensor(valid),
+                                         torch.as_tensor(params))
+    assert tclust.launch_dbscan.launches == before     # CPU: the plain version
+    assert got.dtype == torch.int32 and tuple(got.shape) == valid.shape
+    return got.numpy()
+
+
+@pytest.mark.parametrize("c", range(len(BATCH)), ids=[b[0] for b in BATCH])
+def test_batched_plain_equals_jax_two_stage(batch_labels, c):
+    """Each set of one batched two-stage call equals the JAX
+    two_stage_cluster on that set alone, label for label."""
+    _, (pts, valid), args = BATCH[c]
+    ref = jclust.two_stage_cluster(jnp.asarray(pts), jnp.asarray(valid), *args)
+    np.testing.assert_array_equal(batch_labels[c], np.asarray(ref))
+
+
+def test_batch_cases_are_what_they_claim(batch_labels):
+    names = [b[0] for b in BATCH]
+    valid = {b[0]: b[1][1] for b in BATCH}
+    assert valid["lightpole_176"].sum() == 176
+    v = valid["scattered_valid"]
+    assert not np.array_equal(v, np.arange(len(v)) < v.sum())   # not a prefix
+    assert {tuple(b[2][:2]) for b in BATCH} | {tuple(b[2][2:]) for b in BATCH} \
+        >= set(SLICE_PARAMS)
+    for c, name in enumerate(names):                 # every set has clusters
+        assert (batch_labels[c] >= 0).any(), name

@@ -2,8 +2,10 @@
 
 Range projection with forced depth ties (exact: the same pixel must keep the
 same point), the RANSAC ground fit fed the JAX package's own draws, the
-batched cylinder fit, and one ProcessCloudPipeline.process_scan on a
-simulated forest scan. Fitted values agree to 1e-4 (3x3 eigen-solves and
+batched cylinder fit, and ProcessCloudPipeline.process_scan on simulated
+forest scans (also with one class below min_samples_cluster beside a
+clustered one, and with both classes clustered in one batched call).
+Fitted values agree to 1e-4 (3x3 eigen-solves and
 covariance sums round differently in the two frameworks); counts, masks,
 labels and pixel indices are identical.
 """
@@ -150,6 +152,46 @@ def test_process_scan_matches_jax():
     assert sorted(got) == sorted(want)
     assert len(got["cyl_label"]) >= 3
     np.testing.assert_array_equal(got["cyl_label"], want["cyl_label"])
+    for key in ("cyl_root", "cyl_ray", "cyl_radius"):
+        np.testing.assert_allclose(got[key], want[key], atol=TOL, rtol=0,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("pole_points", [4, 60],
+                         ids=["pole_below_min_samples", "both_clustered"])
+def test_process_scan_batches_clustered_classes(pole_points):
+    """Points of the trunk nearest the sensor relabelled as lightpole: 4 of
+    them (below the class's min_samples_cluster, so the class stays out of
+    the batch while the tree class is clustered), or 60 (both classes in
+    one batched call). Equal to the JAX pipeline, which clusters class by
+    class."""
+    world, traj, odom = forest_scene()
+    k = 3
+    scan = synthetic.simulate_lidar_scan(world, traj[k],
+                                         np.random.default_rng(6))
+    labels = _nearest_object_label(world, se3np.apply(traj[k], scan))
+    xyz = se3np.apply(odom[k], scan)
+    tree_rows = np.nonzero(labels == 8)[0]
+    near = np.linalg.norm(xyz[tree_rows, :2] - odom[k][4:6], axis=1)
+    labels[tree_rows[np.argsort(near, kind="stable")[:pole_points]]] = 9
+    jcfg = jpipe.PipelineConfig(
+        classes=[c for c in jpipe.outdoor_classes() if c.model != "cuboid"],
+        max_range=22.0)
+    want = jpipe.ProcessCloudPipeline(jcfg).process_scan(xyz, labels, odom[k])
+    tcfg = tpipe.PipelineConfig(classes=tpipe.forest_classes(),
+                                max_range=22.0)
+    pipe = tpipe.ProcessCloudPipeline(tcfg, device="cpu",
+                                      ransac_draws=jax_ransac_draws)
+    got = pipe.process_scan(xyz, labels, odom[k])
+    spec = {c.name: c for c in tpipe.forest_classes()}
+    n_pole = pipe.class_points["lightpole"]
+    assert (n_pole >= spec["lightpole"].min_samples_cluster) == \
+        (pole_points == 60)
+    assert pipe.class_points["tree"] >= spec["tree"].min_samples_cluster
+    assert sorted(got) == sorted(want)
+    np.testing.assert_array_equal(got["cyl_label"], want["cyl_label"])
+    assert (np.asarray(got["cyl_label"]) == 8).any()
+    assert (np.asarray(got["cyl_label"]) == 9).any() == (pole_points == 60)
     for key in ("cyl_root", "cyl_ray", "cyl_radius"):
         np.testing.assert_allclose(got[key], want[key], atol=TOL, rtol=0,
                                    err_msg=key)
