@@ -1,7 +1,7 @@
 """Synthetic world, trajectory, measurement log and LiDAR scans.
 
-A numpy copy of slide_slam_tpu/io/synthetic.py (forest world, lawnmower
-trajectory, observation rendering, odometry integration, ATE), plus the
+A numpy copy of slide_slam_tpu/io/synthetic.py (forest world, lawnmower and
+loop trajectories, observation rendering, odometry integration, ATE), plus the
 LiDAR scan simulator of the JAX package's raw-LiDAR test with its densities
 as parameters. The same seed gives the same data as the JAX package.
 """
@@ -118,6 +118,24 @@ def lawnmower_trajectory(n_steps: int, extent=50.0, rows=4, step=1.0,
     return np.stack(poses[:n_steps]).astype(np.float32)
 
 
+def loop_trajectory(n_steps: int, radius=30.0, z=0.5,
+                    laps: float = 1.0) -> np.ndarray:
+    """Circular loop revisiting the start — exercises loop closure.
+
+    laps > 1 keeps driving around: from the second lap on every pose is a
+    genuine revisit of a >=1-lap-older pose, so the loop-closure region
+    (cylinderMapManager.cpp:114-158 semantics: within 10 m xy of a pose
+    >=30 poses old) is active for a sustained stretch of the mission, like
+    the reference's forest demo loops."""
+    poses = []
+    for i in range(n_steps):
+        th = 2 * np.pi * laps * i / (n_steps - 1)
+        x, y = radius * np.cos(th) - radius, radius * np.sin(th)
+        yaw = th + np.pi / 2
+        poses.append(np.asarray(se3.from_xyz_yaw(x, y, z, yaw)))
+    return np.stack(poses).astype(np.float32)
+
+
 def render_observations(world: World, pose: np.ndarray,
                         rng: np.random.Generator, max_range=25.0,
                         pos_noise=0.05, dropout=0.1):
@@ -206,6 +224,49 @@ def ate_rmse(est: np.ndarray, truth: np.ndarray, align=True) -> float:
         R = Vt.T @ S @ U.T
         est_t = (R @ E.T).T + mu_t
     return float(np.sqrt(np.mean(np.sum((est_t - tru_t) ** 2, axis=1))))
+
+
+def stamp_matched_ate(est: np.ndarray, stamps, log: RobotLog,
+                      truth: np.ndarray) -> float:
+    """ATE of a node's own trajectory (est [N, 7], one stamp each) against
+    ground truth matched BY STAMP: a mission fed through the input manager
+    adds keyframes for relative-measurement events too, so est rows can
+    outnumber log keyframes (the JAX package's bench.py:136)."""
+    by_stamp = {round(k.stamp, 6): t[4:7]
+                for k, t in zip(log.keyframes, truth)}
+    pairs = [(e, by_stamp[round(s, 6)])
+             for e, s in zip(est[:, 4:7], stamps) if round(s, 6) in by_stamp]
+    e = np.asarray([p[0] for p in pairs])
+    t = np.asarray([p[1] for p in pairs])
+    return float(np.sqrt(np.mean(np.sum((e - t) ** 2, axis=1))))
+
+
+def relative_measurements(logs: List[RobotLog], rng: np.random.Generator,
+                          max_dist=12.0, period=10):
+    """Synthetic AprilTag-style sightings (the JAX package's bench.py:150):
+    at every stamp where int(2 * stamp) % period == 0, the lower-id robot of
+    each pair whose true poses are within max_dist 'sees' the other, with
+    0.02 m translation noise. Returns [(observer_id, RelativeMeas)]."""
+    from ..runtime.scheduler import RelativeMeas
+
+    out = []
+    by_stamp = {}
+    for log in logs:
+        for kf in log.keyframes:
+            by_stamp.setdefault(round(kf.stamp, 3), {})[log.robot_id] = kf
+    for stamp, robots in sorted(by_stamp.items()):
+        ids = sorted(robots)
+        for i in range(len(ids)):
+            for j in range(i + 1, len(ids)):
+                a, b = robots[ids[i]], robots[ids[j]]
+                d = np.linalg.norm(a.true_pose[4:7] - b.true_pose[4:7])
+                if d < max_dist and int(stamp * 2) % period == 0:
+                    rel = se3.between(a.true_pose, b.true_pose)
+                    rel[4:7] += rng.normal(0, 0.02, 3)
+                    out.append((ids[i], RelativeMeas(
+                        stamp=float(stamp), relative_pose=rel,
+                        robot_index=ids[j], odom_pose=a.odom_pose)))
+    return out
 
 
 def simulate_lidar_scan(world: World, pose7: np.ndarray,

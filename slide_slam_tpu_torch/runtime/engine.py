@@ -129,8 +129,14 @@ def _append_factors(s, prefix, count, cap, ovf_slot, valid, lm_idx, lm_cap,
 
 def _keyframe_body(cfg: SlamConfig, state: GraphState, robot_id: int,
                    pose_estimate, rel_odom, scan_cyl, scan_cub, scan_ell,
-                   drop_detections: bool, odom_noise, cube_noise):
-    """DA + insert + factor append for one keyframe (no solve)."""
+                   drop_detections: bool, odom_noise, cube_noise,
+                   set_prior: bool = True):
+    """DA + insert + factor append for one keyframe (no solve).
+
+    set_prior=False (the peer-replay path): a replayed chain gets no gauge
+    anchor. Freezing its first pose at tf o key_pose would bake the merge
+    TF's error into the graph for good; peer chains hang off shared
+    landmarks and relative factors instead."""
     s = state
     cap = cfg.capacity
     P = cap.max_poses_per_robot
@@ -204,10 +210,12 @@ def _keyframe_body(cfg: SlamConfig, state: GraphState, robot_id: int,
     one = torch.ones((), dtype=torch.int32, device=dev)
     pose_count = s.pose_count.clone()
     pose_count[robot_id] += pose_ok.to(torch.int32)
-    prior_pose, prior_valid = s.prior_pose.clone(), s.prior_valid.clone()
-    prior_pose[robot_id] = torch.where(first, pose_estimate,
-                                       s.prior_pose[robot_id])
-    prior_valid[robot_id] = s.prior_valid[robot_id] | first
+    prior_pose, prior_valid = s.prior_pose, s.prior_valid
+    if set_prior:
+        prior_pose, prior_valid = prior_pose.clone(), prior_valid.clone()
+        prior_pose[robot_id] = torch.where(first, pose_estimate,
+                                           s.prior_pose[robot_id])
+        prior_valid[robot_id] = s.prior_valid[robot_id] | first
     ovf = s.overflow.clone()
     ovf[0] += one - pose_ok.to(torch.int32)
     s = s._replace(
@@ -295,6 +303,44 @@ def keyframe_step_fused(cfg: SlamConfig, state: GraphState, robot_id: int,
     return s, out._replace(pose=s.poses[out.slot.long()])
 
 
+def keyframe_batch_fused(cfg: SlamConfig, state: GraphState, robot_id: int,
+                         odom_and_rel: torch.Tensor,
+                         packed_scans: torch.Tensor, drop_detections,
+                         solver_budget, odom_noise: torch.Tensor,
+                         cube_noise: torch.Tensor):
+    """B keyframe_step_fused bodies in order (pose chaining, DA + insert and
+    the incremental solve per keyframe, exactly as one call each).
+
+    The JAX version scans over a padded [B] batch with a `valid` mask; here
+    the host loops over the B rows it is given, so there are no padding
+    rows. odom_and_rel [B, 2, 7], packed_scans [B, S, 33], drop_detections
+    [B] host bools. Returns (state, stacked per-keyframe poses [B, 7])."""
+    poses = []
+    for i in range(odom_and_rel.shape[0]):
+        state, out = keyframe_step_fused(
+            cfg, state, robot_id, odom_and_rel[i], packed_scans[i],
+            bool(drop_detections[i]), solver_budget, odom_noise, cube_noise)
+        poses.append(out.pose)
+    return state, torch.stack(poses)
+
+
+def replay_batch(cfg: SlamConfig, state: GraphState, robot_id: int,
+                 poses_and_rels: torch.Tensor, packed_scans: torch.Tensor,
+                 odom_noise: torch.Tensor,
+                 cube_noise: torch.Tensor) -> GraphState:
+    """Fold a chunk of PEER keyframes into chain `robot_id`: the DA + insert
+    body per keyframe (no solve, no gauge anchor; the caller solves once
+    after all chunks). poses_and_rels [N, 2, 7] (pose in the host frame,
+    rel odom), packed_scans [N, S, 33]; the host loops over the N rows it
+    is given (the JAX version's padding rows are absent)."""
+    for i in range(poses_and_rels.shape[0]):
+        cyl, cub, ell = unpack_scan(packed_scans[i])
+        state, _ = _keyframe_body(
+            cfg, state, robot_id, poses_and_rels[i, 0], poses_and_rels[i, 1],
+            cyl, cub, ell, False, odom_noise, cube_noise, set_prior=False)
+    return state
+
+
 def solve_full(cfg: SlamConfig, state: GraphState) -> GraphState:
     """Thorough solve: guarded line search, no step-norm exit (the JAX
     version also switches to exact curvature sums; the port's are always
@@ -335,3 +381,26 @@ def compact_map_rows(cfg: SlamConfig, state: GraphState,
             s.cub_scale),
         fam(s.pt_count, s.pt_hits, s.pt_label, s.pt_pos, s.pt_scale),
     ], dim=0)
+
+
+def add_between_factor(cfg: SlamConfig, state: GraphState, slot_i: int,
+                       slot_j: int, rel: torch.Tensor,
+                       sigma: torch.Tensor) -> GraphState:
+    """Append a loop-closure / relative-measurement between factor
+    (graph.cpp:233-258). A full between-factor array drops the append and
+    counts overflow[7]; the write is masked on the device (no host read)."""
+    s = state
+    k = s.bf_count
+    ok = k < s.bf_i.shape[0]
+    row = torch.clamp(k.long(), max=s.bf_i.shape[0] - 1)[None]
+
+    def put(arr, val):
+        val = torch.as_tensor(val, dtype=arr.dtype, device=arr.device)
+        return arr.index_put((row,), torch.where(ok, val, arr[row[0]])[None])
+
+    ovf = s.overflow.clone()
+    ovf[7] += 1 - ok.to(torch.int32)
+    return s._replace(
+        bf_i=put(s.bf_i, slot_i), bf_j=put(s.bf_j, slot_j),
+        bf_rel=put(s.bf_rel, rel), bf_sigma=put(s.bf_sigma, sigma),
+        bf_count=k + ok.to(torch.int32), overflow=ovf)

@@ -7,6 +7,8 @@ carry data between the two packages as numpy arrays.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from slide_slam_tpu import config as jconfig
 from slide_slam_tpu.factorgraph.graph import GraphState as JGraphState
@@ -56,3 +58,15 @@ def forest_scene(n_trees=14, n_steps=12, seed=4):
     log = synthetic.make_log(world, traj, odom_drift_sigma=0.01)
     odom = np.stack([k.odom_pose for k in log.keyframes])
     return world, traj, odom
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's port code on one intra-op thread. The suite runs
+    several pytest workers on the same cores; PyTorch's OpenMP pool in each
+    of them spin-waits against the others and small ops slow down many
+    fold. One thread keeps the mission tests' time what it is alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -34,7 +34,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", GUARD], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25, out.stdout
+    assert int(out.stdout.split()[-1]) >= 41, out.stdout
 
 
 def test_chip_smoke_refuses_without_a_card():
