@@ -4,9 +4,10 @@ twin of slide_slam_tpu/frontend/lidar_pipeline.py).
 One call takes a raw deskewed point cloud and its synced odometry pose and
 returns the body-frame object-measurement dict the backend consumes: the
 single-robot raw-LiDAR configuration (BASELINE config 3). The segmenter is
-any callable `(model_input [1, H, W, 5]) -> labels [1, H, W]`; the port
-ships the simulator's ground-truth labeller (`use_sim`), the network waits
-for a later slice.
+any callable `(model_input [1, H, W, 5]) -> labels [1, H, W]`: the trained
+RangeSegmentator (`lambda x: segmentation.segment(model, x)`, which keeps
+the image and the labels on the card), or the simulator's ground-truth
+labeller (`use_sim`), which runs on the host.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..geometry import se3np
+from ..io.synthetic import nearest_object_label
 from . import range_projection
 from .pipeline import PipelineConfig, ProcessCloudPipeline
 
@@ -86,27 +88,7 @@ def ground_truth_segmenter(world, sensor_pose7_getter):
         labels = np.zeros((H * W,), np.int32)
         mask = x[..., 0].reshape(-1) > 0
         if mask.any():
-            labels[mask] = _nearest_object_label(world, wpts[mask])
+            labels[mask] = nearest_object_label(world, wpts[mask])
         return torch.as_tensor(labels.reshape(1, H, W))
 
     return fn
-
-
-def _nearest_object_label(world, pts, ground_z=0.25, max_dist=1.5):
-    labels = np.full(len(pts), 1, np.int32)       # default: ground
-    centers, labs = [], []
-    if len(world.cyl_root):
-        centers.append(world.cyl_root[:, :2])
-        labs.append(world.cyl_label)
-    if len(world.cub_pose):
-        centers.append(world.cub_pose[:, 4:6])
-        labs.append(world.cub_label)
-    if centers:
-        centers = np.concatenate(centers)
-        labs = np.concatenate(labs)
-        d = np.linalg.norm(pts[:, None, :2] - centers[None], axis=-1)
-        nearest = np.argmin(d, axis=1)
-        near_enough = d[np.arange(len(pts)), nearest] < max_dist
-        sel = near_enough & (pts[:, 2] > ground_z)
-        labels[sel] = labs[nearest[sel]]
-    return labels

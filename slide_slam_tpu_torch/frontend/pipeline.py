@@ -1,22 +1,23 @@
 """Semantic frontend pipeline: labeled point cloud -> object measurements
-(PyTorch twin of slide_slam_tpu/frontend/pipeline.py, ground and cylinder
-branches).
+(PyTorch twin of slide_slam_tpu/frontend/pipeline.py).
 
 Per segmented scan (world frame):
 
 1. range gating,
 2. ground points from the ground class,
-3. two-stage DBSCAN of every cylinder class with at least
+3. two-stage DBSCAN of every cuboid and cylinder class with at least
    min_samples_cluster points (on the card: one copy up, one launch of the
-   CUDA kernel, one copy back), then per class: instances -> batched
-   cylinder fit against local RANSAC ground patches,
-4. conversion to body-frame measurements for the backend keyframe.
-
-The cuboid branch (bbox seeds, tracker, PCA cuboid fit) is not ported yet:
-a class with model "cuboid" raises NotImplementedError.
+   CUDA kernel, one copy back), then per class in the config's order:
+   - cuboid: instances -> batched bbox seeds -> Hungarian track update,
+   - cylinder: instances -> batched cylinder fit against local RANSAC
+     ground patches,
+4. aged cuboid tracks' accumulated points -> batched PCA cuboid fit ->
+   optional yaw snapping,
+5. conversion to body-frame measurements for the backend keyframe.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
@@ -24,7 +25,8 @@ import numpy as np
 import torch
 
 from ..geometry import se3
-from . import clustering, cylinder_fit
+from . import clustering, cuboid_fit, cylinder_fit
+from .tracker import MultiClassTracker
 
 
 @dataclass(frozen=True)
@@ -63,6 +65,31 @@ def forest_classes() -> List[ClassSpec]:
     return [c for c in outdoor_classes() if c.model != "cuboid"]
 
 
+def kitti_classes() -> List[ClassSpec]:
+    """KITTI semantic-segmentation ids: ground=40, car=10 cuboid (assignment
+    threshold 1.0, DBSCAN [0.5, 10], dim cutoffs 0.5-7.5 / 0.5-7.5 /
+    0.2-4.0), tree=71 and lightpole=80 cylinders."""
+    return [
+        ClassSpec("ground", 40, "ground"),
+        ClassSpec("car", 10, "cuboid", eps_cluster=0.5,
+                  min_samples_cluster=10, assignment_threshold=1.0,
+                  dim_lo=(0.5, 0.5, 0.2), dim_hi=(7.5, 7.5, 4.0)),
+        ClassSpec("tree", 71, "cylinder", assignment_threshold=1.0),
+        ClassSpec("lightpole", 80, "cylinder", assignment_threshold=1.0),
+    ]
+
+
+def kitti_pipeline_config() -> "PipelineConfig":
+    """KITTI preset (the 64x1024 HDL-64 cloud layout): 100 m valid range,
+    first-layer DBSCAN (epsilon 0.1 / 7 samples), second layer from the
+    classes, no car facing-direction estimate, yaw snapping on."""
+    classes = [dataclasses.replace(c, eps_noise=0.1, min_samples_noise=7)
+               for c in kitti_classes()]
+    return PipelineConfig(classes=classes, max_range=100.0,
+                          estimate_facing_dir_car=False,
+                          cluster_and_fix_cuboid_orientation=True)
+
+
 @dataclass
 class PipelineConfig:
     classes: List[ClassSpec] = field(default_factory=outdoor_classes)
@@ -89,6 +116,52 @@ def _pad_points(pts: np.ndarray, n: int):
     return out, mask
 
 
+def cluster_classes(point_sets, params, n: int, device) -> np.ndarray:
+    """Two-stage DBSCAN labels [C, n] of C point sets, each padded to n,
+    with params[c] = (eps_noise, min_samples_noise, eps_cluster,
+    min_samples_cluster): one copy to the device, one launch for every set
+    and both stages, one copy back."""
+    C = len(point_sets)
+    if not C:
+        return np.zeros((0, n), np.int32)
+    # points f32 [C, n, 3] | params f32 [C, 4] | valid bool [C, n]
+    n_pts, n_par = C * n * 12, C * 16
+    host = np.zeros(n_pts + n_par + C * n, np.uint8)
+    pts = host[:n_pts].view(np.float32).reshape(C, n, 3)
+    par = host[n_pts:n_pts + n_par].view(np.float32).reshape(C, 4)
+    valid = host[n_pts + n_par:].view(bool).reshape(C, n)
+    for c, (p, q) in enumerate(zip(point_sets, params)):
+        pts[c], valid[c] = _pad_points(p, n)
+        par[c] = clustering.stage_params(*q)
+    buf = torch.from_numpy(host).to(device)
+    labels = clustering.two_stage_cluster_batch(
+        buf[:n_pts].view(torch.float32).view(C, n, 3),
+        buf[n_pts + n_par:].view(torch.bool).view(C, n),
+        buf[n_pts:n_pts + n_par].view(torch.float32).view(C, 4))
+    return labels.cpu().numpy()
+
+
+def fit_aged_tracks(tracker: MultiClassTracker, classes, n: int, device,
+                    **fit_kw):
+    """The tracker's tracks past their class's track_age_threshold and one
+    batched cuboid_fit.fit_cuboids over each track's first n accumulated
+    points (f64 voxel means cast to f32) within its class's dim_lo/dim_hi
+    gates. Returns (tracks, fit), fit None when no track is aged."""
+    tracks = tracker.aged_tracks({c.label: c.track_age_threshold
+                                  for c in classes})
+    if not tracks:
+        return tracks, None
+    specs = {c.label: c for c in classes}
+    padded = [_pad_points(t.all_raw_points, n) for t in tracks]
+
+    def dev(a, dtype=np.float32):
+        return torch.as_tensor(np.asarray(a, dtype), device=device)
+    return tracks, cuboid_fit.fit_cuboids(
+        dev([p for p, _ in padded]), dev([m for _, m in padded], bool),
+        dev([specs[t.class_label].dim_lo for t in tracks]),
+        dev([specs[t.class_label].dim_hi for t in tracks]), **fit_kw)
+
+
 class ProcessCloudPipeline:
     """`ransac_draws(n_rows, n_hypotheses) -> [I, H, 3]` ints, when given,
     supplies the RANSAC draws (tests pass the JAX package's); otherwise the
@@ -97,14 +170,11 @@ class ProcessCloudPipeline:
     def __init__(self, cfg: Optional[PipelineConfig] = None, device="cuda",
                  ransac_draws: Optional[Callable] = None):
         self.cfg = cfg or PipelineConfig()
-        for spec in self.cfg.classes:
-            if spec.model == "cuboid":
-                raise NotImplementedError(
-                    f"class {spec.name!r}: the cuboid branch (cuboid_fit, "
-                    "tracker) is not ported yet (ROADMAP, port queue item 2: "
-                    "the car branch); use forest_classes()")
         self.device = torch.device(device)
         self.ransac_draws = ransac_draws
+        self.tracker = MultiClassTracker(
+            {c.label: c.assignment_threshold for c in self.cfg.classes},
+            downsample_res=self.cfg.downsample_res)
         self.scan_idx = 0
         # per-scan statistics of the last process_scan call
         self.class_points: dict = {}
@@ -127,7 +197,8 @@ class ProcessCloudPipeline:
         sensor_xyz = np.asarray(sensor_pose7, np.float32)[4:7]
         rng_ok = np.linalg.norm(xyz - sensor_xyz, axis=1) < cfg.max_range
         obs = {k: [] for k in ("cyl_root", "cyl_ray", "cyl_radius",
-                               "cyl_label")}
+                               "cyl_label", "cub_pose", "cub_scale",
+                               "cub_label")}
         ground_spec = next((c for c in cfg.classes if c.model == "ground"),
                            None)
         ground_pts = (xyz[rng_ok & (point_labels == ground_spec.label)]
@@ -146,35 +217,39 @@ class ProcessCloudPipeline:
         for (spec, pts), lab in zip(clustered, labels):
             k = min(len(pts), cfg.max_points_per_class)
             instances = self._instances_from_labels(pts[:k], lab[:k])
-            if instances:
+            if not instances:
+                continue
+            if spec.model == "cuboid":
+                self._track_cuboids(spec, instances)
+            elif spec.model == "cylinder":
                 self._fit_cylinders(spec, instances, ground_pts, obs)
+        self._emit_cuboids(obs)
         self.scan_idx += 1
         return self._to_body_frame(obs, sensor_pose7)
 
+    def _track_cuboids(self, spec: ClassSpec, instances):
+        """Bbox seeds of every instance in one batched call, then one
+        tracker update with the valid seeds in instance order."""
+        cfg = self.cfg
+        padded = [_pad_points(p, cfg.max_points_per_instance)
+                  for p in instances]
+        seeds = cuboid_fit.fit_bbox_seeds(
+            self._t(np.stack([p for p, _ in padded])),
+            self._t(np.stack([m for _, m in padded])),
+            spec.fit_cuboid_dim_thresh)
+        seeds = torch.stack([s.float() for s in seeds], dim=1).cpu().numpy()
+        ok = seeds[:, 4] > 0
+        if ok.any():
+            dets = seeds[ok, :4].astype(np.float64)
+            raw = [p for p, keep in zip(instances, ok) if keep]
+            self.tracker.update(spec.label, dets, raw, self.scan_idx)
+
     def _cluster(self, clustered) -> np.ndarray:
-        """Two-stage DBSCAN labels [C, N] of the classes' points, padded to
-        N = max_points_per_class: one copy to the device, one launch for
-        every class and both stages, one copy back."""
-        C, N = len(clustered), self.cfg.max_points_per_class
-        if not C:
-            return np.zeros((0, N), np.int32)
-        # points f32 [C, N, 3] | params f32 [C, 4] | valid bool [C, N]
-        n_pts, n_par = C * N * 12, C * 16
-        host = np.zeros(n_pts + n_par + C * N, np.uint8)
-        pts = host[:n_pts].view(np.float32).reshape(C, N, 3)
-        params = host[n_pts:n_pts + n_par].view(np.float32).reshape(C, 4)
-        valid = host[n_pts + n_par:].view(bool).reshape(C, N)
-        for c, (spec, p) in enumerate(clustered):
-            pts[c], valid[c] = _pad_points(p, N)
-            params[c] = clustering.stage_params(
-                spec.eps_noise, spec.min_samples_noise, spec.eps_cluster,
-                spec.min_samples_cluster)
-        buf = torch.from_numpy(host).to(self.device)
-        labels = clustering.two_stage_cluster_batch(
-            buf[:n_pts].view(torch.float32).view(C, N, 3),
-            buf[n_pts + n_par:].view(torch.bool).view(C, N),
-            buf[n_pts:n_pts + n_par].view(torch.float32).view(C, 4))
-        return labels.cpu().numpy()
+        return cluster_classes(
+            [p for _, p in clustered],
+            [(s.eps_noise, s.min_samples_noise, s.eps_cluster,
+              s.min_samples_cluster) for s, _ in clustered],
+            self.cfg.max_points_per_class, self.device)
 
     def _fit_cylinders(self, spec: ClassSpec, instances, ground_pts, obs):
         cfg = self.cfg
@@ -212,15 +287,48 @@ class ProcessCloudPipeline:
             obs["cyl_radius"].append(float(radius[i]))
             obs["cyl_label"].append(spec.label)
 
+    def _emit_cuboids(self, obs):
+        """Aged tracks -> one batched PCA cuboid fit -> world cuboid poses,
+        yaws snapped when configured."""
+        cfg = self.cfg
+        tracks, fit = fit_aged_tracks(
+            self.tracker, cfg.classes, cfg.max_points_per_instance,
+            self.device, estimate_facing_dir=cfg.estimate_facing_dir_car)
+        if not tracks:
+            return
+        host = torch.cat([fit.centroid, fit.dims, fit.yaw[:, None],
+                          fit.valid[:, None].float()], dim=1).cpu().numpy()
+        cen, dims, valid = host[:, :3], host[:, 3:6], host[:, 7] > 0
+        yaws = host[:, 6].astype(np.float64)
+        if cfg.cluster_and_fix_cuboid_orientation and valid.sum() > 2:
+            yaws[valid] = cuboid_fit.cluster_cuboid_orientation(yaws[valid])
+        for i in np.nonzero(valid)[0]:
+            obs["cub_pose"].append((cen[i], yaws[i]))
+            obs["cub_scale"].append(dims[i])
+            obs["cub_label"].append(tracks[i].class_label)
+
     def _to_body_frame(self, obs, sensor_pose7):
         """World measurements -> body frame."""
         out = {}
+        if not (obs["cyl_root"] or obs["cub_pose"]):
+            return out
+        inv = se3.inverse(self._t(np.asarray(sensor_pose7, np.float32)))
         if obs["cyl_root"]:
-            inv = se3.inverse(self._t(np.asarray(sensor_pose7, np.float32)))
             roots = self._t(np.stack(obs["cyl_root"]))
             rays = self._t(np.stack(obs["cyl_ray"]))
             out["cyl_root"] = se3.apply(inv, roots).cpu().numpy()
             out["cyl_ray"] = se3.rotate(inv, rays).cpu().numpy()
             out["cyl_radius"] = np.asarray(obs["cyl_radius"], np.float32)
             out["cyl_label"] = np.asarray(obs["cyl_label"], np.int32)
+        if obs["cub_pose"]:
+            cen = self._t(np.stack([c for c, _ in obs["cub_pose"]]))
+            half = 0.5 * self._t(np.asarray([y for _, y in obs["cub_pose"]],
+                                            np.float32))
+            zero = torch.zeros_like(half)
+            poses = torch.cat([torch.stack([torch.cos(half), zero, zero,
+                                            torch.sin(half)], dim=-1), cen],
+                              dim=-1)
+            out["cub_pose"] = se3.compose(inv, poses).cpu().numpy()
+            out["cub_scale"] = np.stack(obs["cub_scale"]).astype(np.float32)
+            out["cub_label"] = np.asarray(obs["cub_label"], np.int32)
         return out

@@ -271,9 +271,13 @@ def relative_measurements(logs: List[RobotLog], rng: np.random.Generator,
 
 def simulate_lidar_scan(world: World, pose7: np.ndarray,
                         rng: np.random.Generator, max_range=20.0,
-                        rays_per_tree=60, ground_pts=600) -> np.ndarray:
+                        rays_per_tree=60, ground_pts=600,
+                        rays_per_car=None) -> np.ndarray:
     """Body-frame point cloud sampling the ground disk, tree trunks and car
-    shells in range of pose7 (world -> body by pose7^-1)."""
+    shells in range of pose7 (world -> body by pose7^-1). Cars take
+    rays_per_car points each (default rays_per_tree)."""
+    if rays_per_car is None:
+        rays_per_car = rays_per_tree
     pts_w = []
     ang = rng.uniform(0, 2 * np.pi, ground_pts)
     rad = np.sqrt(rng.uniform(0.5, 1.0, ground_pts)) * max_range
@@ -289,7 +293,7 @@ def simulate_lidar_scan(world: World, pose7: np.ndarray,
                 z]))
     for pose_c, scale in zip(world.cub_pose, world.cub_scale):
         if np.linalg.norm(pose_c[4:6] - pose7[4:6]) < max_range:
-            local = rng.uniform(-0.5, 0.5, (rays_per_tree, 3)) * scale
+            local = rng.uniform(-0.5, 0.5, (rays_per_car, 3)) * scale
             local[:, 2] += scale[2] / 2
             yaw = se3.yaw_of(pose_c)
             cs, sn = np.cos(yaw), np.sin(yaw)
@@ -299,6 +303,27 @@ def simulate_lidar_scan(world: World, pose7: np.ndarray,
     pts_w = np.concatenate(pts_w).astype(np.float32)
     inv = se3.inverse(np.asarray(pose7, np.float32))
     return se3.apply(inv, pts_w)
+
+
+def synth_box_points(rng: np.random.Generator, center, dims, yaw,
+                     n=400) -> np.ndarray:
+    """n points uniform in a yawed box (the JAX package's frontend tests)."""
+    local = rng.uniform(-0.5, 0.5, (n, 3)) * np.asarray(dims)
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+    return (R @ local.T).T + np.asarray(center)
+
+
+def synth_tree_points(rng: np.random.Generator, root, radius, height=6.0,
+                      n=300, lean=(0.0, 0.0)) -> np.ndarray:
+    """n points on a leaning trunk's surface (the JAX package's frontend
+    tests)."""
+    t = rng.uniform(0, height, n)
+    th = rng.uniform(0, 2 * np.pi, n)
+    axis = np.array([lean[0], lean[1], 1.0])
+    axis /= np.linalg.norm(axis)
+    return (np.asarray(root)[None] + t[:, None] * axis[None]
+            + radius * np.stack([np.cos(th), np.sin(th), np.zeros(n)], 1))
 
 
 @dataclass
@@ -311,18 +336,24 @@ class LidarMission:
     odom: np.ndarray        # [K, 7]
     scans: List[np.ndarray]
     rays_per_tree: int
+    rays_per_car: int = 0
 
 
 def make_lidar_mission(seed=0, n_trees=120, n_poles=20, extent=45.0,
                        n_keyframes=150, path_extent=40.0, rows=4, step=1.5,
                        odom_drift_sigma=0.01, scan_range=25.0,
-                       max_class_points=1024, ground_pts=600) -> LidarMission:
-    """The forest raw-LiDAR mission (no cars, no RGBD ellipsoids): a world
-    from make_forest_world(rng(seed)), a lawnmower path, odometry integrated
-    as make_log does, and scans whose trunk density (rays_per_tree) keeps
-    the tree class in range at or below max_class_points in every scan."""
+                       max_class_points=1024, ground_pts=600,
+                       n_cars=0) -> LidarMission:
+    """The raw-LiDAR mission (no RGBD ellipsoids): a world from
+    make_forest_world(rng(seed)), a lawnmower path, odometry integrated as
+    make_log does, and scans whose densities keep every class in range at or
+    below max_class_points in every scan: rays_per_tree from the largest
+    cylinder class in range, rays_per_car from the most cars in range. With
+    n_cars = 0 (the forest mission) no car is drawn; with cars (the urban
+    mission) the trees and poles stay where they are, since make_forest_world
+    draws the cars after them."""
     world = make_forest_world(np.random.default_rng(seed), n_trees=n_trees,
-                              n_poles=n_poles, n_cars=0, extent=extent)
+                              n_poles=n_poles, n_cars=n_cars, extent=extent)
     world.ell_pos = world.ell_pos[:0]
     world.ell_scale = world.ell_scale[:0]
     world.ell_label = world.ell_label[:0]
@@ -335,8 +366,70 @@ def make_lidar_mission(seed=0, n_trees=120, n_poles=20, extent=45.0,
     per_label = [(d[:, world.cyl_label == lab] < scan_range).sum(1).max()
                  for lab in np.unique(world.cyl_label)]
     rays = int(max_class_points // max(max(per_label), 1))
-    srng = np.random.default_rng(seed + 1)
-    scans = [simulate_lidar_scan(world, p, srng, max_range=scan_range,
-                                 rays_per_tree=rays, ground_pts=ground_pts)
-             for p in traj]
-    return LidarMission(world, traj, odom, scans, rays)
+    cars_in_range = (np.linalg.norm(world.cub_pose[None, :, 4:6]
+                                    - traj[:, None, 4:6], axis=-1)
+                     < scan_range).sum(1).max() if n_cars else 0
+    car_rays = int(max_class_points // max(cars_in_range, 1))
+    while True:
+        srng = np.random.default_rng(seed + 1)
+        scans = [simulate_lidar_scan(world, p, srng, max_range=scan_range,
+                                     rays_per_tree=rays,
+                                     ground_pts=ground_pts,
+                                     rays_per_car=car_rays)
+                 for p in traj]
+        if not n_cars:
+            break
+        # the simulator labeller gives a car's points near a trunk to the
+        # trunk's class: thin the densities until no class goes over
+        over = _labelled_over(world, traj, scans, max_class_points)
+        if not over:
+            break
+        rays -= int(TREE in over or LIGHTPOLE in over)
+        car_rays -= int(CAR in over)
+    return LidarMission(world, traj, odom, scans, rays,
+                        car_rays if n_cars else 0)
+
+
+def _labelled_over(world: World, traj, scans, max_class_points):
+    """The classes that the simulator labeller gives more than
+    max_class_points points in some scan."""
+    over = set()
+    for pose, scan in zip(traj, scans):
+        labels = nearest_object_label(world, se3.apply(pose, scan))
+        for lab in (TREE, LIGHTPOLE, CAR):
+            if (labels == lab).sum() > max_class_points:
+                over.add(lab)
+    return over
+
+
+def nearest_object_label(world: World, pts: np.ndarray, ground_z=0.25,
+                         max_dist=1.5) -> np.ndarray:
+    """The simulator's labels of world-frame points (the reference's use_sim
+    shortcut): a point above ground_z takes the class of the nearest object
+    (trunk root or car centre, in XY) when that object lies within
+    max_dist, and every other point is ground (1). Only objects whose centre
+    lies within max_dist (and a metre of margin) of the points' XY bounding
+    box can be such a nearest object, so only they are compared: the labels,
+    ties to the lower object index included, are those over all objects."""
+    labels = np.full(len(pts), 1, np.int32)       # default: ground
+    centers, labs = [], []
+    if len(world.cyl_root):
+        centers.append(world.cyl_root[:, :2])
+        labs.append(world.cyl_label)
+    if len(world.cub_pose):
+        centers.append(world.cub_pose[:, 4:6])
+        labs.append(world.cub_label)
+    if centers and len(pts):
+        centers = np.concatenate(centers)
+        labs = np.concatenate(labs)
+        reach = max_dist + 1.0
+        keep = ((centers >= pts[:, :2].min(0) - reach)
+                & (centers <= pts[:, :2].max(0) + reach)).all(1)
+        centers, labs = centers[keep], labs[keep]
+        if len(centers):
+            d = np.linalg.norm(pts[:, None, :2] - centers[None], axis=-1)
+            nearest = np.argmin(d, axis=1)
+            near_enough = d[np.arange(len(pts)), nearest] < max_dist
+            sel = near_enough & (pts[:, 2] > ground_z)
+            labels[sel] = labs[nearest[sel]]
+    return labels

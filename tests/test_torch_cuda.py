@@ -119,3 +119,75 @@ def test_batched_kernel_refuses_what_it_cannot_take():
             clustering.launch_dbscan(*args)
     with pytest.raises(RuntimeError):
         clustering.launch_dbscan(p, v, q, cluster=3)
+
+
+def urban_batch():
+    """The car, tree and lightpole sets of the urban mission's keyframe with
+    the most car points (simulator labels), padded to 1024, with the outdoor
+    classes' stage parameters: the C = 3 launch of the urban path."""
+    from slide_slam_tpu_torch.io.synthetic import nearest_object_label
+    from slide_slam_tpu_torch.frontend.pipeline import outdoor_classes
+    from slide_slam_tpu_torch.geometry import se3np
+    from slide_slam_tpu_torch.io import synthetic
+    m = synthetic.make_lidar_mission(n_cars=15, n_keyframes=40)
+    labels = [nearest_object_label(m.world, se3np.apply(m.traj[k], s))
+              for k, s in enumerate(m.scans)]
+    k = int(np.argmax([(lab == synthetic.CAR).sum() for lab in labels]))
+    world = se3np.apply(m.odom[k], m.scans[k])
+    sets = []
+    for spec in outdoor_classes():
+        if spec.model == "ground":
+            continue
+        pts = world[labels[k] == spec.label][:1024]
+        pad = np.zeros((1024, 3), np.float32)
+        pad[:len(pts)] = pts
+        valid = np.arange(1024) < len(pts)
+        sets.append((pad, valid, clustering.stage_params(
+            spec.eps_noise, spec.min_samples_noise, spec.eps_cluster,
+            spec.min_samples_cluster)))
+    return sets
+
+
+@pytest.mark.cuda
+def test_batched_kernel_three_classes_equals_plain():
+    """Car + tree + lightpole in the one launch the urban path makes."""
+    _card()
+    sets = urban_batch()
+    pts, valid, params = (np.stack([s[i] for s in sets]) for i in range(3))
+    assert valid[0].sum() > 0
+    args = [torch.as_tensor(a, device="cuda") for a in (pts, valid, params)]
+    before = clustering.launch_dbscan.launches
+    got = clustering.two_stage_cluster_batch(*args)
+    assert clustering.launch_dbscan.launches == before + 1
+    ref = clustering.two_stage_cluster_reference(
+        *(torch.as_tensor(a) for a in (pts, valid, params)))
+    assert (ref[0] >= 0).any()
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_segmentator_card_equals_cpu(dtype):
+    """The small net with seeded weights and random BatchNorm statistics on
+    the card (TF32 off) and on the CPU: f32 logits within 2e-4 and the same
+    labels; bf16 logits within 0.1 (1 bf16 ulp per conv, compounded)."""
+    _card()
+    from slide_slam_tpu_torch.frontend import segmentation as seg
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+    model = seg.init_params(seg.small_segmentator(16, dtype=tdt), gen)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, seg.BatchNorm):
+                mod.mean.normal_(0, 0.1, generator=gen)
+                mod.var.uniform_(0.5, 1.5, generator=gen)
+    x = torch.randn(2, 16, 256, 5, generator=gen)
+    want = seg._eval_logits(model.eval(), x)
+    got = seg._eval_logits(model.cuda(), x.cuda()).cpu()
+    tol = 2e-4 if dtype == "f32" else 0.1
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=0)
+    if dtype == "f32":
+        np.testing.assert_array_equal(got.argmax(-1).numpy(),
+                                      want.argmax(-1).numpy())

@@ -4,7 +4,8 @@ Range projection with forced depth ties (exact: the same pixel must keep the
 same point), the RANSAC ground fit fed the JAX package's own draws, the
 batched cylinder fit, and ProcessCloudPipeline.process_scan on simulated
 forest scans (also with one class below min_samples_cluster beside a
-clustered one, and with both classes clustered in one batched call).
+clustered one, and with both classes clustered in one batched call), and
+the simulator labeller.
 Fitted values agree to 1e-4 (3x3 eigen-solves and
 covariance sums round differently in the two frameworks); counts, masks,
 labels and pixel indices are identical.
@@ -15,12 +16,12 @@ import pytest
 import torch
 
 from slide_slam_tpu.frontend import cylinder_fit as jfit
+from slide_slam_tpu.frontend import lidar_pipeline as jlp
 from slide_slam_tpu.frontend import pipeline as jpipe
 from slide_slam_tpu.frontend import range_projection as jrp
 from slide_slam_tpu_torch.frontend import cylinder_fit as tfit
 from slide_slam_tpu_torch.frontend import pipeline as tpipe
 from slide_slam_tpu_torch.frontend import range_projection as trp
-from slide_slam_tpu_torch.frontend.lidar_pipeline import _nearest_object_label
 from slide_slam_tpu_torch.geometry import se3np
 from slide_slam_tpu_torch.io import synthetic
 
@@ -138,7 +139,8 @@ def test_process_scan_matches_jax():
     k = 5
     scan = synthetic.simulate_lidar_scan(world, traj[k],
                                          np.random.default_rng(5))
-    labels = _nearest_object_label(world, se3np.apply(traj[k], scan))
+    labels = synthetic.nearest_object_label(world,
+                                            se3np.apply(traj[k], scan))
     xyz = se3np.apply(odom[k], scan)
     jcfg = jpipe.PipelineConfig(
         classes=[c for c in jpipe.outdoor_classes() if c.model != "cuboid"],
@@ -169,7 +171,8 @@ def test_process_scan_batches_clustered_classes(pole_points):
     k = 3
     scan = synthetic.simulate_lidar_scan(world, traj[k],
                                          np.random.default_rng(6))
-    labels = _nearest_object_label(world, se3np.apply(traj[k], scan))
+    labels = synthetic.nearest_object_label(world,
+                                            se3np.apply(traj[k], scan))
     xyz = se3np.apply(odom[k], scan)
     tree_rows = np.nonzero(labels == 8)[0]
     near = np.linalg.norm(xyz[tree_rows, :2] - odom[k][4:6], axis=1)
@@ -197,6 +200,54 @@ def test_process_scan_batches_clustered_classes(pole_points):
                                    err_msg=key)
 
 
-def test_cuboid_class_is_refused():
-    with pytest.raises(NotImplementedError, match="car branch"):
-        tpipe.ProcessCloudPipeline(tpipe.PipelineConfig(), device="cpu")
+def test_default_config_with_cars_matches_jax():
+    """ProcessCloudPipeline(PipelineConfig()), the JAX pipeline's default
+    (ground, car, tree, lightpole), on simulated scans of a small world with
+    three cars: every scan's cylinder and cuboid measurements equal JAX's,
+    cars emitted once their tracks pass the age gate."""
+    rng = np.random.default_rng(4)
+    world = synthetic.make_forest_world(rng, n_trees=14, n_poles=0,
+                                        n_cars=3, extent=14.0)
+    world.ell_pos = world.ell_pos[:0]
+    traj = synthetic.lawnmower_trajectory(5, extent=10.0, rows=1, step=1.8)
+    jp = jpipe.ProcessCloudPipeline(jpipe.PipelineConfig())
+    tp = tpipe.ProcessCloudPipeline(tpipe.PipelineConfig(), device="cpu",
+                                    ransac_draws=jax_ransac_draws)
+    srng = np.random.default_rng(7)
+    n_cub = []
+    for pose in traj:
+        scan = synthetic.simulate_lidar_scan(world, pose, srng,
+                                             rays_per_car=300)
+        labels = synthetic.nearest_object_label(world,
+                                                se3np.apply(pose, scan))
+        xyz = se3np.apply(pose, scan)
+        want = jp.process_scan(xyz, labels, pose)
+        got = tp.process_scan(xyz, labels, pose)
+        assert sorted(got) == sorted(want)
+        for key in ("cyl_label", "cub_label"):
+            if key in want:
+                np.testing.assert_array_equal(got[key], want[key])
+        for key in ("cyl_root", "cyl_ray", "cyl_radius", "cub_pose",
+                    "cub_scale"):
+            if key in want:
+                np.testing.assert_allclose(got[key], want[key], atol=TOL,
+                                           rtol=0, err_msg=key)
+        n_cub.append(len(got.get("cub_label", [])))
+    assert tp.class_points["car"] > 0 and max(n_cub) >= 1
+
+
+def test_simulator_labels_match_jax():
+    """The simulator labeller, which compares each point only with the
+    objects near the scan, gives the JAX package's labels (compared with
+    every object) on the urban mission's scans from the true and the
+    odometry poses, and on points far from every object."""
+    m = synthetic.make_lidar_mission(n_cars=15, n_keyframes=12)
+    for k, scan in enumerate(m.scans):
+        for pose in (m.traj[k], m.odom[k]):
+            pts = se3np.apply(pose, scan)
+            np.testing.assert_array_equal(
+                synthetic.nearest_object_label(m.world, pts),
+                jlp._nearest_object_label(m.world, pts))
+    far = np.array([[500.0, 500.0, 1.0], [-500.0, 0.0, 2.0]], np.float32)
+    np.testing.assert_array_equal(
+        synthetic.nearest_object_label(m.world, far), [1, 1])

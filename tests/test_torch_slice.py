@@ -17,11 +17,16 @@ from slide_slam_tpu.frontend import pipeline as jpipe
 from slide_slam_tpu.runtime import engine as jengine
 from slide_slam_tpu.runtime.node import SlamNode as JNode
 from slide_slam_tpu_torch.frontend import lidar_pipeline as tlp
-from slide_slam_tpu_torch.frontend.pipeline import PipelineConfig, forest_classes
+from slide_slam_tpu_torch.frontend.pipeline import (PipelineConfig,
+                                                   forest_classes,
+                                                   outdoor_classes)
 from slide_slam_tpu_torch.io import synthetic
 from slide_slam_tpu_torch.runtime.node import SlamNode as TNode
 
-from _torch_parity import forest_scene, jax_ransac_draws, small_configs
+from _torch_parity import (forest_scene, jax_ransac_draws,  # noqa: F401
+                           one_torch_thread, small_configs)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 POS_TOL = 1e-3      # m
 ROT_TOL = 1e-3      # rad (quaternion vector part, ~ half angle)
@@ -44,11 +49,10 @@ def _run(make_frontend, node, scans, traj, odom, record):
     return obs_all
 
 
-@pytest.fixture(scope="module")
-def missions():
-    world, traj, odom = forest_scene()
-    srng = np.random.default_rng(5)
-    scans = [synthetic.simulate_lidar_scan(world, p, srng) for p in traj]
+def _both(world, traj, odom, scans, j_classes, t_classes):
+    """The mission through the JAX package and through the port (CPU, the
+    JAX package's RANSAC draws): per-keyframe measurements, step outputs,
+    trajectories and landmark counts."""
     jcfg, tcfg = small_configs()
     lidar = dict(height=32, width=512, desired_period=0.0)
 
@@ -62,7 +66,6 @@ def missions():
         return s, out
 
     jnode = JNode(jcfg, robot_id=0)
-    j_classes = [c for c in jpipe.outdoor_classes() if c.model != "cuboid"]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jengine, "keyframe_step_fused", recording_step)
         j_obs = _run(lambda getter: jlp.LidarFrontend(
@@ -77,7 +80,7 @@ def missions():
     t_obs = _run(lambda getter: tlp.LidarFrontend(
         tlp.ground_truth_segmenter(world, getter),
         tlp.LidarFrontendConfig(**lidar),
-        PipelineConfig(classes=forest_classes(), max_range=22.0),
+        PipelineConfig(classes=t_classes, max_range=22.0),
         device="cpu", ransac_draws=jax_ransac_draws),
         tnode, scans, traj, odom,
         lambda n: t_outs.append({k: v.numpy() for k, v in
@@ -87,6 +90,34 @@ def missions():
                 t_traj=tnode.optimized_trajectory(),
                 t_counts=tnode.landmark_counts(),
                 j_counts=jnode.landmark_counts())
+
+
+@pytest.fixture(scope="module")
+def missions():
+    world, traj, odom = forest_scene()
+    srng = np.random.default_rng(5)
+    scans = [synthetic.simulate_lidar_scan(world, p, srng) for p in traj]
+    return _both(world, traj, odom, scans,
+                 [c for c in jpipe.outdoor_classes() if c.model != "cuboid"],
+                 forest_classes())
+
+
+@pytest.fixture(scope="module")
+def urban():
+    """The forest scene with three cars, 10 keyframes, the outdoor classes
+    with the car branch (both packages' PipelineConfig() classes)."""
+    rng = np.random.default_rng(4)
+    world = synthetic.make_forest_world(rng, n_trees=14, n_poles=0, n_cars=3,
+                                        extent=14.0)
+    world.ell_pos = world.ell_pos[:0]
+    traj = synthetic.lawnmower_trajectory(10, extent=10.0, rows=1, step=1.8)
+    log = synthetic.make_log(world, traj, odom_drift_sigma=0.01)
+    odom = np.stack([k.odom_pose for k in log.keyframes])
+    srng = np.random.default_rng(5)
+    scans = [synthetic.simulate_lidar_scan(world, p, srng, rays_per_car=300)
+             for p in traj]
+    return _both(world, traj, odom, scans, jpipe.outdoor_classes(),
+                 outdoor_classes())
 
 
 @pytest.mark.parametrize("kf", range(12))
@@ -121,3 +152,34 @@ def test_trajectory_and_ate(missions):
     t_ate = synthetic.ate_rmse(t_traj, truth, align=False)
     assert abs(t_ate - j_ate) < POS_TOL, (t_ate, j_ate)
     assert missions["t_counts"] == missions["j_counts"]
+
+
+@pytest.mark.parametrize("kf", range(10))
+def test_urban_keyframe_parity(urban, kf):
+    """Cylinders and cuboids per keyframe: counts, labels and match indices
+    identical, values within MEAS_TOL, the step's pose within POS_TOL."""
+    jo, to = urban["j_obs"][kf], urban["t_obs"][kf]
+    assert sorted(jo) == sorted(to)
+    for key in ("cyl_label", "cub_label"):
+        if key in jo:
+            np.testing.assert_array_equal(to[key], jo[key], err_msg=key)
+    for key in ("cyl_root", "cyl_ray", "cyl_radius", "cub_pose",
+                "cub_scale"):
+        if key in jo:
+            np.testing.assert_allclose(to[key], jo[key], atol=MEAS_TOL,
+                                       rtol=0, err_msg=key)
+    j_out, t_out = urban["j_outs"][kf], urban["t_outs"][kf]
+    for key in ("cyl_matches", "cub_matches", "pt_matches", "overflow"):
+        np.testing.assert_array_equal(t_out[key], j_out[key], err_msg=key)
+    np.testing.assert_allclose(t_out["pose"][4:7], j_out["pose"][4:7],
+                               atol=POS_TOL, rtol=0)
+    np.testing.assert_allclose(t_out["pose"][1:4], j_out["pose"][1:4],
+                               atol=ROT_TOL, rtol=0)
+
+
+def test_urban_trajectory_and_landmarks(urban):
+    np.testing.assert_allclose(urban["t_traj"][:, 4:7],
+                               urban["j_traj"][:, 4:7], atol=POS_TOL, rtol=0)
+    assert urban["t_counts"] == urban["j_counts"]
+    assert urban["t_counts"]["cuboids"] >= 1
+    assert sum(len(o.get("cub_label", [])) for o in urban["t_obs"]) > 0
