@@ -69,7 +69,32 @@ package. Phases, in this order, each of which fails the run:
                     decisions and counts identical, own chains within
                     3 cm, replayed peer chains within 4 cm, per-robot ATE
                     within 1 cm (the card's run-to-run spread: see
-                    CARD_VS_CPU_OWN_TOL).
+                    CARD_VS_CPU_OWN_TOL);
+12. slice:indoor_rgbd_team  the indoor two-robot RGBD team of
+                    indoor_rgbd_team.py (the world of
+                    tests/test_indoor_rgbd.py, 50 keyframes per robot,
+                    640 x 480 frames, robot 1 following robot 0 2 m behind
+                    and reading its tag) on the card, three times: each
+                    keyframe's frame through OpenVocabFrontend.process_frame
+                    and instance_measurements to SlamNode.process_keyframe,
+                    robot 1's tag images through ApriltagMeasurer to
+                    relative factors, database exchanges every 5 keyframes.
+                    Gates on the first run: overflow 0, per robot 10-28 point
+                    landmarks, median landmark error < 0.25 m and ATE below
+                    odometry's (tests/test_indoor_rgbd.py), every sighting's
+                    tag pose within 0.12 m and 2 deg of the truth, >= 1
+                    relative factor, no DBSCAN launch. The third run saves
+                    robot 1 after keyframe 25, drops it and restores it on
+                    the card: state bit for bit and host mirrors equal,
+                    then decisions identical to the first run and poses
+                    within RESTART_SPREAD_FACTOR x the gap between the first
+                    two runs. Prints frames per second and ms per frame of
+                    each stage;
+13. card_vs_cpu:indoor_rgbd  robot 0's first 8 keyframes on the card and on
+                    the CPU: every labelled cloud's label, instance and
+                    valid identical, xyz within 1e-6 m, instance
+                    measurements identical in count and order, poses within
+                    1e-3 m.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 the line {"ok": true, "device": {...}}. In the kernels line, `launches` is
@@ -158,6 +183,19 @@ INDOOR_SCANS = 5
 # the net saw too few trees (on the mission's first draft: held-out IoU
 # 0.569, loop median root error 2.05 m; PERF.md)
 NET_TRAIN_SCANS = tuple(range(0, 48, 3))
+# slice:indoor_rgbd_team: the gates of tests/test_indoor_rgbd.py:60-73 and
+# tests/test_apriltag.py:131,150
+RGBD_MIN_POINTS, RGBD_MAX_POINTS = 10, 22 + 6
+RGBD_LANDMARK_ERROR_M = 0.25
+TAG_TRANSLATION_M = 0.12
+TAG_ROTATION_DEG = 2.0
+# a restored robot runs on from a bit-equal state, so it may differ from an
+# uninterrupted run only as two uninterrupted card runs differ (the order of
+# the card's atomic sums); the gate allows 4x their gap, at least 10 um
+RESTART_SPREAD_FACTOR = 4.0
+RESTART_SPREAD_FLOOR_M = 1e-5
+RGBD_CARD_VS_CPU_KEYFRAMES = 8
+RGBD_XYZ_TOL = 1e-6
 
 
 class PhaseError(RuntimeError):
@@ -1144,6 +1182,242 @@ def phase_card_vs_cpu_mission(devices=("cuda", "cpu")):
           f"{cpu[1]:.1f} s)")
 
 
+def rgbd_team_parts(device, scene):
+    """(make_frontend, make_node, measurer, cfg) of the indoor RGBD team on
+    `device` (the port's objects)."""
+    import indoor_rgbd_team as team
+    from slide_slam_tpu_torch import config
+    from slide_slam_tpu_torch.frontend import apriltag, open_vocab
+    from slide_slam_tpu_torch.frontend.tag36h11 import tag36h11_family
+    from slide_slam_tpu_torch.geometry import se3np
+    from slide_slam_tpu_torch.io import synthetic
+    from slide_slam_tpu_torch.runtime.node import SlamNode
+    cfg = team.indoor_cfg(config)
+    cam = scene.cam
+    detect = team.scripted_detector(open_vocab, scene.world, synthetic)
+    classes = open_vocab.parse_class_info(team.class_yaml(synthetic))
+
+    def make_frontend():
+        return open_vocab.OpenVocabFrontend(detect, classes, cam.fx, cam.fy,
+                                            cam.cx, cam.cy, device=device)
+
+    def make_node(r):
+        return SlamNode(cfg, r, prior_tf_known=True, device=device)
+
+    measurer = apriltag.ApriltagMeasurer(
+        tag36h11_family(), cam.matrix(), team.TAG_SIZE_M,
+        se3np.matrix(scene.bot_to_cam), team.tag_config(scene),
+        host_robot_id=1)
+    return make_frontend, make_node, measurer, cfg
+
+
+def node_mirrors(node):
+    """A node's host state that a restore must bring back."""
+    db = {rid: (rec.bookmark_fg, [p.stamp for p in rec.packets],
+                [p.key_pose.tolist() for p in rec.packets])
+          for rid, rec in node.dbm.records.items()}
+    return dict(
+        key_stamps=list(node.key_stamps),
+        key_poses=[p.tolist() for p in node.key_poses],
+        xyz=[np.asarray(x).tolist() for x in node._xyz_hist],
+        latest_odom=node.latest_odom.tolist(),
+        refresh=node._kf_since_refresh, full=node._kf_since_full_solve,
+        peers=dict(node._peer_pose_count),
+        rel=[(m.stamp, m.robot_index, m.relative_pose.tolist())
+             for m in node.feasible_relative_meas],
+        tfs={k: v.tolist() for k, v in node.dbm.loop_closure_tf.items()},
+        db=db, rel_factors=node.num_rel_factors)
+
+
+def team_gap(a, b):
+    """Largest position gap between two team runs over every chain of every
+    node; None when a chain's length differs."""
+    import indoor_rgbd_team as team
+    gap = 0.0
+    for na, nb in zip(a.nodes, b.nodes):
+        for rid in range(2):
+            ta, tb = na.trajectory_of(rid), nb.trajectory_of(rid)
+            if ta.shape != tb.shape:
+                return None
+            gap = max(gap, team.position_gap(ta, tb))
+    return gap
+
+
+def team_decisions(run):
+    return [(n.landmark_counts(), n.num_rel_factors, n.overflow_report(),
+             n.key_stamps) for n in run.nodes]
+
+
+def phase_indoor_rgbd_team(device="cuda"):
+    """The indoor RGBD team on the card (see the module notes, phase 12;
+    `device` lets the phase be rehearsed on the CPU)."""
+    import tempfile
+    import torch
+    import indoor_rgbd_team as team
+    from slide_slam_tpu_torch.frontend import clustering
+    from slide_slam_tpu_torch.frontend.tag36h11 import tag36h11_family
+    from slide_slam_tpu_torch.geometry import se3np
+    from slide_slam_tpu_torch.io import checkpoint, synthetic
+
+    t0 = time.perf_counter()
+    scene = team.render_scene(se3np, team.make_scene(synthetic, se3np),
+                              tag36h11_family())
+    render_s = time.perf_counter() - t0
+    make_frontend, make_node, measurer, cfg = rgbd_team_parts(device, scene)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    clustering.launch_dbscan.launches = 0
+    first = team.run_team(scene, make_frontend, make_node, measurer,
+                          sync=sync)
+    launches = clustering.launch_dbscan.launches
+    second = team.run_team(scene, make_frontend, make_node, measurer,
+                           sync=sync)
+
+    restored = {}
+
+    def restart(node):
+        saved = {f: getattr(node.state, f).clone()
+                 for f in node.state._fields}
+        mirrors = node_mirrors(node)
+        with tempfile.TemporaryDirectory() as tmp:
+            checkpoint.save_node(tmp, node)
+            new = checkpoint.load_node(tmp, cfg, device=device)
+        for f, want in saved.items():
+            got = getattr(new.state, f)
+            check(got.device.type == device and got.dtype == want.dtype
+                  and torch.equal(got, want),
+                  f"restored GraphState field {f} differs from the saved one")
+        check(node_mirrors(new) == mirrors,
+              "restored host mirrors differ from the saved node's")
+        restored["keyframes"] = len(new.key_stamps)
+        return {"node": new}
+
+    third = team.run_team(scene, make_frontend, make_node, measurer,
+                          restart_at=team.N_KEYFRAMES // 2, restart=restart,
+                          sync=sync)
+    n = len(scene.stamps)
+    frames = 2 * n
+    tag_frames = sum(img is not None for img in scene.tag_images)
+    secs = first.seconds
+    robots = [team.map_report(node, scene.world, synthetic, scene.trajs[r],
+                              scene.odom[r])
+              for r, node in enumerate(first.nodes)]
+    errs = team.sighting_errors(se3np, scene, first.sightings)
+    spread = team_gap(first, second)
+    gap = team_gap(first, third)
+    stats = dict(
+        keyframes_per_robot=n, frames=frames, tag_frames=tag_frames,
+        render_s=render_s, wall_s=first.wall_s,
+        frames_per_s=frames / first.wall_s,
+        ms_per_frame={
+            "process_frame": secs["process_frame"] * 1e3 / frames,
+            "instance_measurements":
+                secs["instance_measurements"] * 1e3 / frames,
+            "keyframe_step": secs["keyframe_step"] * 1e3 / frames,
+            "apriltag": secs["apriltag"] * 1e3 / tag_frames},
+        walls_s=[first.wall_s, second.wall_s, third.wall_s],
+        robots=robots, sightings=len(errs),
+        tag_translation_err_m=max((e[1] for e in errs), default=None),
+        tag_rotation_err_deg=max((e[2] for e in errs), default=None),
+        relative_factors=[nd.num_rel_factors for nd in first.nodes],
+        measurements=sum(len(m) for _, _, m in first.measurements),
+        overflow=[nd.overflow_report() for nd in first.nodes],
+        dbscan_launches=launches,
+        restart_at_keyframe=restored.get("keyframes"),
+        two_run_gap_m=spread, restart_gap_m=gap)
+    print("[slice:indoor_rgbd_team] " + json.dumps(stats))
+    print(f"[slice:indoor_rgbd_team] frames per second "
+          f"{stats['frames_per_s']:.4f}")
+    for stage, ms in stats["ms_per_frame"].items():
+        print(f"[slice:indoor_rgbd_team] {stage} ms per frame {ms:.4f}")
+    check(launches == 0, f"the RGBD path launched DBSCAN {launches} times")
+    for node in first.nodes:
+        check(sum(node.overflow_report().values()) == 0,
+              f"robot {node.robot_id}: overflow {node.overflow_report()}")
+    for r, rep in enumerate(robots):
+        check(RGBD_MIN_POINTS <= rep["points"] <= RGBD_MAX_POINTS,
+              f"robot {r}: {rep['points']} point landmarks")
+        check(rep["median_landmark_error_m"] < RGBD_LANDMARK_ERROR_M,
+              f"robot {r}: median landmark error "
+              f"{rep['median_landmark_error_m']} m")
+        check(rep["ate_m"] < rep["ate_odometry_m"],
+              f"robot {r}: ATE {rep['ate_m']} m not below odometry's "
+              f"{rep['ate_odometry_m']} m")
+    check(errs, "robot 1 decoded no tag")
+    for i, dt, dr in errs:
+        check(dt <= TAG_TRANSLATION_M and dr <= TAG_ROTATION_DEG,
+              f"keyframe {i}: tag pose {dt} m / {dr} deg off the truth")
+    check(first.nodes[1].num_rel_factors >= 1, "no relative factor added")
+    check(restored.get("keyframes") == team.N_KEYFRAMES // 2,
+          "robot 1 was not restarted")
+    check(team_decisions(second) == team_decisions(first),
+          "two uninterrupted card runs decided differently")
+    check(team_decisions(third) == team_decisions(first),
+          "the restored run decided differently from the uninterrupted one")
+    check(gap is not None and spread is not None
+          and gap <= max(RESTART_SPREAD_FACTOR * spread,
+                         RESTART_SPREAD_FLOOR_M),
+          f"restored run {gap} m from the uninterrupted one, two "
+          f"uninterrupted runs {spread} m apart")
+    for node in third.nodes:
+        traj = node.optimized_trajectory()
+        check(node.state.poses.device.type == device
+              and bool(np.isfinite(traj).all()) and traj.shape == (n, 7),
+              f"robot {node.robot_id}: trajectory {traj.shape} on {device}")
+    return stats
+
+
+def phase_card_vs_cpu_rgbd(devices=("cuda", "cpu")):
+    """Robot 0's first keyframes of the RGBD team on the card and on the
+    CPU: clouds, instance measurements and poses (phase 13)."""
+    import torch
+    import indoor_rgbd_team as team
+    from slide_slam_tpu_torch.frontend import rgbd
+    from slide_slam_tpu_torch.frontend.tag36h11 import tag36h11_family
+    from slide_slam_tpu_torch.geometry import se3np
+    from slide_slam_tpu_torch.io import synthetic
+
+    n = RGBD_CARD_VS_CPU_KEYFRAMES
+    scene = team.render_scene(se3np, team.make_scene(synthetic, se3np,
+                                                     n_keyframes=n),
+                              tag36h11_family())
+    runs = {}
+    for device in devices:
+        make_frontend, make_node, measurer, _ = rgbd_team_parts(device,
+                                                                scene)
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        runs[device] = team.run_team(scene, make_frontend, make_node,
+                                     measurer, robots=(0,),
+                                     host_cloud=rgbd.host_cloud, sync=sync)
+    card, cpu = (runs[d] for d in devices)
+    xyz_gap = 0.0
+    for (_, i, a), (_, _, b) in zip(card.clouds, cpu.clouds):
+        for key in ("label", "instance", "valid"):
+            check(np.array_equal(getattr(a, key), getattr(b, key)),
+                  f"keyframe {i}: cloud {key} differs card vs CPU")
+        xyz_gap = max(xyz_gap, float(np.abs(a.xyz - b.xyz).max()))
+    check(xyz_gap <= RGBD_XYZ_TOL, f"cloud xyz {xyz_gap} m apart")
+    n_meas = 0
+    for (_, i, a), (_, _, b) in zip(card.measurements, cpu.measurements):
+        check([(c, f) for _, _, c, f in a] == [(c, f) for _, _, c, f in b],
+              f"keyframe {i}: instance measurements differ card vs CPU")
+        for (pa, ma, _, _), (pb, mb, _, _) in zip(a, b):
+            check(np.array_equal(ma, mb) and np.abs(pa - pb).max()
+                  <= RGBD_XYZ_TOL, f"keyframe {i}: instance points differ")
+        n_meas += len(a)
+    ta = card.nodes[0].optimized_trajectory()
+    tb = cpu.nodes[0].optimized_trajectory()
+    pose_gap = team.position_gap(ta, tb)
+    check(ta.shape == tb.shape == (n, 7) and pose_gap <= POSE_TOL,
+          f"poses {pose_gap} m apart card vs CPU")
+    check(card.nodes[0].landmark_counts() == cpu.nodes[0].landmark_counts(),
+          "landmark counts differ card vs CPU")
+    print(f"[card_vs_cpu:indoor_rgbd] robot 0, {n} keyframes: clouds' "
+          f"integers identical, xyz {xyz_gap:.3e} m apart, {n_meas} instance "
+          f"measurements identical in count and order, poses {pose_gap:.3e} "
+          f"m apart (card {card.wall_s:.1f} s, CPU {cpu.wall_s:.1f} s)")
+
+
 def phase_urban(urban):
     stats, per_kf = phase_slice(urban, "urban_lidar_solo", urban=True,
                                 ate_bound=URBAN_ATE_BOUND_M,
@@ -1204,6 +1478,8 @@ def main():
         indoor = run("slice:indoor_lidar", phase_indoor)
         mission = run("slice:multi_robot_mission", phase_multi_robot_mission)
         run("card_vs_cpu:mission", phase_card_vs_cpu_mission)
+        rgbd_team = run("slice:indoor_rgbd_team", phase_indoor_rgbd_team)
+        run("card_vs_cpu:indoor_rgbd", phase_card_vs_cpu_rgbd)
     except Exception as e:  # every failed phase fails the run
         import traceback
         traceback.print_exc()
@@ -1216,7 +1492,8 @@ def main():
         "urban_lidar_solo": urban_run[0]["dbscan_launches"],
         "net_in_the_loop": loop["dbscan_launches"],
         "indoor_lidar": indoor["dbscan_launches"],
-        "multi_robot_mission": mission["dbscan_launches"]}
+        "multi_robot_mission": mission["dbscan_launches"],
+        "indoor_rgbd_team": rgbd_team["dbscan_launches"]}
     print(json.dumps({"kernels": [{
         "name": "dbscan", "route": "cuda",
         "source": "slide_slam_tpu_torch/csrc/dbscan.cu",

@@ -256,6 +256,24 @@ class SlamNode:
             with phase("periodic_full_solve"):
                 self.state = engine.solve_full(self.cfg, self.state)
 
+    def rebuild_mirrors(self):
+        """Re-derive host mirrors after key_poses / the database were
+        replaced wholesale (checkpoint restore): the xyz mirror from
+        key_poses, the folded peer counts from the bookmarks; the async
+        fetches, the last step's outputs, the refresh counter and the
+        buffered relative sightings start afresh (io/checkpoint.py restores
+        the last two when the checkpoint carries them)."""
+        self._xyz_hist = [np.asarray(p[4:7]) for p in self.key_poses]
+        self._kf_since_refresh = 0
+        self._peer_pose_count = {
+            rid: rec.bookmark_fg for rid, rec in self.dbm.records.items()
+            if rid != self.robot_id}
+        self.feasible_relative_meas = []
+        self.last_step = None
+        self._pose_future = None
+        self._map_future = None
+        self._map_dirty = True
+
     # ------------------------------------------------------------------
     # Main keyframe path
     # ------------------------------------------------------------------

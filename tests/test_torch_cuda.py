@@ -191,3 +191,84 @@ def test_segmentator_card_equals_cpu(dtype):
     if dtype == "f32":
         np.testing.assert_array_equal(got.argmax(-1).numpy(),
                                       want.argmax(-1).numpy())
+
+
+def _rgbd_frame(seed, H=480, W=640, K=12):
+    rng = np.random.default_rng(seed)
+    depth = rng.integers(0, 12000, (H, W)).astype(np.uint16)
+    masks = np.zeros((K, H, W), bool)
+    for k in range(K):
+        y0, x0 = rng.integers(0, H - 40), rng.integers(0, W - 40)
+        h, w = rng.integers(20, 200), rng.integers(20, 300)
+        masks[k, y0:y0 + h, x0:x0 + w] = True
+    masks[-1] |= masks[0]
+    return (depth, masks, rng.integers(0, 9, K).astype(np.int32),
+            rng.uniform(0.0, 1.0, K).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backproject_card_equals_cpu(seed):
+    """rgbd.backproject (plain PyTorch ops) on the card against the CPU at
+    640 x 480: label, instance, valid and confidence identical, xyz within
+    1e-6 m; the world transform too."""
+    _card()
+    from slide_slam_tpu_torch.frontend import rgbd
+    depth, masks, labels, conf = _rgbd_frame(seed)
+    args = (525.0, 525.0, 319.5, 239.5)
+    kw = dict(depth_scale=1e-3, max_depth=10.0, conf_thresh=0.4)
+    pose = np.array([0.9, 0.1, -0.3, 0.2, 1.5, -2.0, 0.4], np.float32)
+    pose[:4] /= np.linalg.norm(pose[:4])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = [torch.from_numpy(a).to(dev) for a in
+             (depth.astype(np.float32), masks, labels, conf)]
+        cloud = rgbd.backproject(*t, *args, **kw)
+        out[dev] = (rgbd.host_cloud(cloud),
+                    rgbd.host_cloud(rgbd.to_world(cloud, pose)))
+        assert cloud.xyz.device.type == dev
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for key in ("label", "instance", "valid", "confidence"):
+            np.testing.assert_array_equal(getattr(got, key),
+                                          getattr(want, key))
+        np.testing.assert_allclose(got.xyz, want.xyz, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_checkpoint_card_to_cpu_and_back(tmp_path):
+    """A node saved on the card loads on the CPU and back on the card with
+    every GraphState field bit for bit (dtypes too), and both continue to
+    the same landmark counts."""
+    _card()
+    from slide_slam_tpu_torch import config
+    from slide_slam_tpu_torch.io import checkpoint, synthetic
+    from slide_slam_tpu_torch.runtime.node import SlamNode
+    cfg = config.SlamConfig(number_of_robots=2, capacity=config.CapacityConfig(
+        max_poses_per_robot=64, max_cylinders=128, max_cuboids=64,
+        max_points=64, max_scan_objects=32, max_cylinder_factors=512,
+        max_cuboid_factors=256, max_point_factors=256,
+        max_between_factors=16))
+    rng = np.random.default_rng(0)
+    world = synthetic.make_forest_world(rng, n_trees=25, n_poles=5, n_cars=5,
+                                        extent=20.0)
+    traj = synthetic.lawnmower_trajectory(16, extent=16.0, rows=1, step=1.5)
+    log = synthetic.make_log(world, traj, odom_drift_sigma=0.01)
+    node = SlamNode(cfg, robot_id=0, device="cuda")
+    for kf in log.keyframes[:10]:
+        node.process_keyframe(kf.stamp, kf.odom_pose, vars(kf))
+    checkpoint.save_node(str(tmp_path / "card"), node)
+    cpu = checkpoint.load_node(str(tmp_path / "card"), cfg, device="cpu")
+    checkpoint.save_node(str(tmp_path / "cpu"), cpu)
+    back = checkpoint.load_node(str(tmp_path / "cpu"), cfg, device="cuda")
+    for restored, dev in ((cpu, "cpu"), (back, "cuda")):
+        for f in node.state._fields:
+            a, b = getattr(restored.state, f), getattr(node.state, f)
+            assert a.device.type == dev and a.dtype == b.dtype, f
+            assert torch.equal(a.cpu(), b.cpu()), f
+    for n in (node, cpu, back):
+        for kf in log.keyframes[10:]:
+            n.process_keyframe(kf.stamp, kf.odom_pose, vars(kf))
+    assert node.landmark_counts() == cpu.landmark_counts() == \
+        back.landmark_counts()
+    np.testing.assert_allclose(back.optimized_trajectory(),
+                               node.optimized_trajectory(), atol=1e-3)

@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: with `jax`, `flax`, `slide_slam_tpu` and
-`sklearn` (not a dependency of the port) made unimportable,
-`slide_slam_tpu_torch`, every one of its modules and chip_smoke.py import in
-a fresh interpreter, and no CUDA kernel is built on import."""
+"""The PyTorch port stands alone: with `jax`, `flax`, `slide_slam_tpu`,
+`sklearn` and `cv2` (not dependencies of the port) made unimportable,
+`slide_slam_tpu_torch`, every one of its modules, chip_smoke.py and the
+indoor team's scene (indoor_rgbd_team.py) import in a fresh interpreter,
+and no CUDA kernel is built on import."""
 import os
 import subprocess
 import sys
@@ -11,7 +12,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 GUARD = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "slide_slam_tpu", "sklearn"):
+for name in ("jax", "jaxlib", "flax", "slide_slam_tpu", "sklearn", "cv2"):
     sys.modules[name] = None
 import slide_slam_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(slide_slam_tpu_torch.__path__,
@@ -19,11 +20,12 @@ mods = [m.name for m in pkgutil.walk_packages(slide_slam_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+import indoor_rgbd_team
 from slide_slam_tpu_torch import kernels
 assert not kernels._loaded, kernels._loaded
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "slide_slam_tpu",
-                                    "sklearn")
+                                    "sklearn", "cv2")
              and sys.modules[k] is not None)
 assert not bad, bad
 print(len(mods))
@@ -35,7 +37,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", GUARD], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 47, out.stdout
+    assert int(out.stdout.split()[-1]) >= 53, out.stdout
 
 
 def test_chip_smoke_refuses_without_a_card():
