@@ -8,7 +8,9 @@ fallback) and the CUDA toolkit's nvcc. Imports nothing of JAX or of the JAX
 package. Phases, in this order, each of which fails the run:
 
 1. build            compile every hand-written kernel from csrc/ (one nvcc
-                    per source, all started together) and print the seconds;
+                    per source, all started together) and, beside them, the
+                    native runtime core from native/*.cpp (g++), and print
+                    the seconds;
 2. kernel:dbscan    the DBSCAN kernel against its plain PyTorch version on
                     the card, labels exactly equal, at N = 1024: each of the
                     forest keyframe's four problems and a > 64-hop chain
@@ -19,6 +21,12 @@ package. Phases, in this order, each of which fails the run:
                     graphs (no host in the way), the empty-kernel floor of
                     the same launch shape, the plain version's time and the
                     card's bound for the same work;
+   kernel:dbscan:kitti  above 1024 points: the KITTI preset at
+                    max_points_per_class = 4096 over 4 dense scans through
+                    ProcessCloudPipeline (one launch per scan), and the
+                    kernel against the plain version at N = 1500, 4096 and
+                    8192 (car, tree, lightpole; labels exactly equal),
+                    times from CUDA graphs, floor, plain time and bound;
 3. net:range_segmentator  the full-width RangeSegmentator (20 classes,
                     stage blocks (1, 2, 8, 8, 4), 64x1024, seeded init):
                     f32 logits card (TF32 off) vs CPU, the bf16 forward's
@@ -32,6 +40,11 @@ package. Phases, in this order, each of which fails the run:
                     one DBSCAN launch per keyframe with a clustered class;
 5. card_vs_cpu      its first 8 keyframes again with device="cpu": match
                     indices identical, poses within 1e-3;
+   slice:unified_solo  the same mission with SolverConfig(use_schur=False),
+                    the unified-variable solve, for the keyframes that fit
+                    UNIFIED_BUDGET_S (all 150 so far): one DBSCAN launch
+                    per keyframe, overflow 0, ATE <= 1.25 x the JAX
+                    package's unified run over the same keyframes;
 6. slice:urban_lidar_solo  the same world with 15 cars, the outdoor classes
                     with the car branch (bbox seeds, tracker, PCA cuboids,
                     yaw snapping), the urban capacity: one DBSCAN launch
@@ -64,12 +77,34 @@ package. Phases, in this order, each of which fails the run:
                     warm-up: overflow 0, merged robot pairs equal to the JAX
                     run's, mean ATE <= 1.25 x the JAX run's; no DBSCAN
                     launch (the path reads measurement logs);
+    check:native_dsd  the C++ queues (native.py) fed the mission's logs
+                    pick what the Python scheduler picks,
+                    InputManager(use_native=True) takes them, and a
+                    DSD-rounded SlideGraph search between the mission's
+                    final maps of robots 0 and 1 gives the same inliers on
+                    the card and the CPU, and a merge;
+    check:sharded_solves  distributed_solve (factor-sharded unified) and
+                    landmark_sharded_solve (landmark-sharded Schur) with 4
+                    shards in lockstep on the card against the local solve
+                    of a 25-keyframe forest graph whose poses start 5 cm
+                    off (the solve moves them ~12.6 cm): poses within
+                    1 cm, cost within 1e-3 relative, every integer
+                    identical;
 11. card_vs_cpu:mission  the 2-robot x 50-keyframe sync mission of
                     tests/test_torch_mission.py on the card and on the CPU:
                     decisions and counts identical, own chains within
                     3 cm, replayed peer chains within 4 cm, per-robot ATE
                     within 1 cm (the card's run-to-run spread: see
                     CARD_VS_CPU_OWN_TOL);
+    slice:spmd_team  the decentralized team step
+                    (parallel/multirobot.build_spmd_step) over the
+                    mission's 3 robots for 50 steps, robot 0 given robot
+                    1's frame and robot 1 robot 2's at step 10: the first
+                    12 steps equal the CPU's in every integer, chains
+                    within 3 / 4 cm; robot 0 holds all three chains and
+                    beats its odometry; own ATEs within 1.25 x and
+                    overflow counters equal to the JAX team step's; no
+                    DBSCAN launch;
 12. slice:indoor_rgbd_team  the indoor two-robot RGBD team of
                     indoor_rgbd_team.py (the world of
                     tests/test_indoor_rgbd.py, 50 keyframes per robot,
@@ -83,13 +118,15 @@ package. Phases, in this order, each of which fails the run:
                     landmarks, median landmark error < 0.25 m and ATE below
                     odometry's (tests/test_indoor_rgbd.py), every sighting's
                     tag pose within 0.12 m and 2 deg of the truth, >= 1
-                    relative factor, no DBSCAN launch. The third run saves
-                    robot 1 after keyframe 25, drops it and restores it on
-                    the card: state bit for bit and host mirrors equal,
-                    then decisions identical to the first run and poses
-                    within RESTART_SPREAD_FACTOR x the gap between the first
-                    two runs. Prints frames per second and ms per frame of
-                    each stage;
+                    relative factor, no DBSCAN launch; the first run uses
+                    the card's default algorithms and is the one timed.
+                    The second and third use deterministic algorithms; the
+                    third saves robot 1 after keyframe 25, drops it and
+                    restores it on the card: state bit for bit and host
+                    mirrors equal, then decisions identical to the first
+                    two runs and poses within RESTART_GAP_M of the second.
+                    Prints frames per second and ms per frame of each
+                    stage;
 13. card_vs_cpu:indoor_rgbd  robot 0's first 8 keyframes on the card and on
                     the CPU: every labelled cloud's label, instance and
                     valid identical, xyz within 1e-6 m, instance
@@ -103,7 +140,9 @@ the DBSCAN launch count summed over the paths (one per scan; per path under
 forest's largest keyframe (two classes, both stages), `floor_ms` an empty
 kernel's of the same launch shape, `plain_ms` the plain version's time for
 the same batch on the card, `bound_ms` the card's least time for the four
-problems' work; `urban_c3` holds the same for the urban C = 3 launch.
+problems' work; `urban_c3` holds the same for the urban C = 3 launch and
+`kitti_c3` for the KITTI sets at N = 1500, 4096 and 8192 (one launch per
+scan through the global-memory path).
 """
 import json
 import math
@@ -189,11 +228,14 @@ RGBD_MIN_POINTS, RGBD_MAX_POINTS = 10, 22 + 6
 RGBD_LANDMARK_ERROR_M = 0.25
 TAG_TRANSLATION_M = 0.12
 TAG_ROTATION_DEG = 2.0
-# a restored robot runs on from a bit-equal state, so it may differ from an
-# uninterrupted run only as two uninterrupted card runs differ (the order of
-# the card's atomic sums); the gate allows 4x their gap, at least 10 um
-RESTART_SPREAD_FACTOR = 4.0
-RESTART_SPREAD_FLOOR_M = 1e-5
+# a restored robot runs on from a bit-equal state. The restored run and the
+# uninterrupted one it is held to use deterministic algorithms (torch.use_
+# deterministic_algorithms), so they agree bit for bit (0.0 m on the card)
+# and the gate is 10 um: with the card's atomic sums two runs were a random
+# draw 0.46 to 2.92 mm apart, and 4x the gap of two such runs failed a
+# correct restore (PERF.md). The first run, timed and gated on the map,
+# uses the card's default algorithms, as users run the team.
+RESTART_GAP_M = 1e-5
 RGBD_CARD_VS_CPU_KEYFRAMES = 8
 RGBD_XYZ_TOL = 1e-6
 
@@ -234,10 +276,18 @@ def card_line():
 
 # ---------------------------------------------------------------------------
 def phase_build():
-    from slide_slam_tpu_torch import kernels
+    """nvcc for csrc/dbscan.cu and g++ for the native runtime core, at
+    once."""
+    from concurrent.futures import ThreadPoolExecutor
+    from slide_slam_tpu_torch import kernels, native
     t0 = time.perf_counter()
-    libs = kernels.build_all(["dbscan"], verbose=True)
-    print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as pool:
+        cpp = pool.submit(native.load)
+        libs = kernels.build_all(["dbscan"], verbose=True)
+        check(cpp.result() is not None, "g++ could not build the native "
+              "runtime core (native/*.cpp)")
+    print(f"[build] {sorted(libs)} + {native.library_path().name} in "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 def dbscan_work(points, valid, eps, min_samples, max_iters=64):
@@ -613,7 +663,7 @@ def phase_net_in_the_loop(urban, gt_at):
     print("[slice:net_in_the_loop] training " + json.dumps(net))
     check(iou_train >= NET_IOU_GATE,
           f"training-scan IoU {iou_train} < {NET_IOU_GATE}")
-    stats, _ = phase_slice(urban, "net_in_the_loop", urban=True,
+    stats, _, _ = phase_slice(urban, "net_in_the_loop", urban=True,
                            n=NET_LOOP_KEYFRAMES, ate_bound=math.inf,
                            segment_fn=lambda x: seg.segment(model, x),
                            snapshot_at=NET_REPORT_AT)
@@ -701,11 +751,15 @@ def phase_indoor(n_scans=INDOOR_SCANS, devices=("cuda", "cpu")):
 
 
 def run_mission(mission, device, n_keyframes, record, urban=False,
-                segment_fn=None):
+                segment_fn=None, unified=False, budget_s=None):
     """The raw-LiDAR solo path: LidarFrontend (the simulator labeller, or
     `segment_fn`) -> SlamNode.process_keyframe for the first n_keyframes.
     Forest: the forest classes at mission capacity; urban: the outdoor
-    classes with the car branch at the urban capacity."""
+    classes with the car branch at the urban capacity. `unified`: the
+    unified-variable solve (SolverConfig.use_schur=False). `budget_s`: stop
+    at the first multiple of UNIFIED_KF_STEP keyframes, at least
+    UNIFIED_MIN_KEYFRAMES, once that many seconds have passed."""
+    import dataclasses
     import torch
     from slide_slam_tpu_torch import config
     from slide_slam_tpu_torch.frontend.lidar_pipeline import (
@@ -726,8 +780,12 @@ def run_mission(mission, device, n_keyframes, record, urban=False,
         number_of_robots=1, turn_off_intra_loop_closure=True,
         capacity=urban_capacity(config) if urban
         else config.mission_capacity(150, n_cylinders=140))
+    if unified:
+        cfg = cfg.replace(solver=dataclasses.replace(cfg.solver,
+                                                     use_schur=False))
     node = SlamNode(cfg, robot_id=0, device=device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    start = time.perf_counter()
     for i in range(n_keyframes):
         holder["pose"] = mission.traj[i]
         stamp = 1000.0 + 0.5 * i
@@ -741,6 +799,10 @@ def run_mission(mission, device, n_keyframes, record, urban=False,
         sync()
         t2 = time.perf_counter()
         record(i, node, frontend, obs, t1 - t0, t2 - t1)
+        if (budget_s is not None and i + 1 >= UNIFIED_MIN_KEYFRAMES
+                and (i + 1) % UNIFIED_KF_STEP == 0
+                and time.perf_counter() - start > budget_s):
+            break
     return node, cfg
 
 
@@ -753,12 +815,15 @@ def root_errors(node, world):
 
 
 def phase_slice(mission, name="raw_lidar_solo", urban=False, n=None,
-                ate_bound=ATE_BOUND_M, segment_fn=None, snapshot_at=()):
+                ate_bound=ATE_BOUND_M, segment_fn=None, snapshot_at=(),
+                unified=False, budget_s=None):
     """One raw-LiDAR solo run on the card with the DBSCAN launch count set
     to 0 just before and read just after: one launch per keyframe with a
-    clustered class, overflow 0, ATE within its bound. At each keyframe
-    count in `snapshot_at` it also records the landmarks, the optimized
-    trajectory's ATE and the map's median root error."""
+    clustered class, overflow 0, ATE within its bound (a number, or a
+    function of the keyframes run). At each keyframe count in
+    `snapshot_at` it also records the landmarks, the optimized
+    trajectory's ATE and the map's median root error. Returns (stats,
+    per-keyframe records, the node)."""
     import torch
     from slide_slam_tpu_torch.frontend import clustering
     from slide_slam_tpu_torch.frontend.pipeline import (forest_classes,
@@ -793,10 +858,14 @@ def phase_slice(mission, name="raw_lidar_solo", urban=False, n=None,
     torch.cuda.synchronize()
     clustering.launch_dbscan.launches = 0
     t0 = time.perf_counter()
-    node, cfg = run_mission(mission, "cuda", n, record, urban, segment_fn)
+    node, cfg = run_mission(mission, "cuda", n, record, urban, segment_fn,
+                            unified, budget_s)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = clustering.launch_dbscan.launches
+    n = len(per_kf)
+    if callable(ate_bound):
+        ate_bound = ate_bound(n)
 
     every = cfg.solver.full_solve_every
     full_kf = [i for i in range(n) if every and (i + 1) % every == 0]
@@ -829,6 +898,7 @@ def phase_slice(mission, name="raw_lidar_solo", urban=False, n=None,
         landmarks=node.landmark_counts(), overflow=overflow)
     if snapshot:
         stats["at_keyframe"] = snapshot
+    stats["ate_bound_m"] = ate_bound
     print(f"[slice:{name}] " + json.dumps(stats))
     check(launches > 0, "the main path launched no DBSCAN kernel")
     check(launches == expected,
@@ -836,7 +906,7 @@ def phase_slice(mission, name="raw_lidar_solo", urban=False, n=None,
     check(sum(overflow.values()) == 0, f"capacity overflow: {overflow}")
     check(math.isfinite(ate) and ate <= ate_bound,
           f"ATE {ate} m not finite or above the bound {ate_bound} m")
-    return stats, per_kf
+    return stats, per_kf, node
 
 
 def phase_card_vs_cpu(mission, card_kf, urban=False):
@@ -1107,9 +1177,12 @@ def probe_slidegraph(report):
 
 
 def phase_multi_robot_mission():
+    """Returns the stats and the final compact maps of robots 0 and 1."""
     stats, report, logs = run_multi_robot_mission("cuda")
     stats["slidegraph_probe"] = probe_slidegraph(report)
     print("[slice:multi_robot_mission] " + json.dumps(stats))
+    maps = tuple(m[~((m[:, 1] == 0) & (m[:, 2] == 0))] for m in (
+        report.nodes[0].compact_map(), report.nodes[1].compact_map()))
     check_mission_output(report, logs, "cuda")
     check(stats["dbscan_launches"] == 0,
           "the mission path launched the DBSCAN kernel")
@@ -1123,7 +1196,7 @@ def phase_multi_robot_mission():
     ate = stats["ate_mean_m"]
     check(math.isfinite(ate) and ate <= MISSION_ATE_BOUND_M,
           f"mean ATE {ate} m not finite or above {MISSION_ATE_BOUND_M} m")
-    return stats
+    return stats, maps
 
 
 def phase_card_vs_cpu_mission(devices=("cuda", "cpu")):
@@ -1250,14 +1323,15 @@ def team_decisions(run):
 
 def phase_indoor_rgbd_team(device="cuda"):
     """The indoor RGBD team on the card (see the module notes, phase 12;
-    `device` lets the phase be rehearsed on the CPU)."""
-    import tempfile
+    `device` lets the phase be rehearsed on the CPU): the first run with
+    the default algorithms, the pair held to each other for the restart
+    with deterministic ones."""
     import torch
     import indoor_rgbd_team as team
     from slide_slam_tpu_torch.frontend import clustering
     from slide_slam_tpu_torch.frontend.tag36h11 import tag36h11_family
     from slide_slam_tpu_torch.geometry import se3np
-    from slide_slam_tpu_torch.io import checkpoint, synthetic
+    from slide_slam_tpu_torch.io import synthetic
 
     t0 = time.perf_counter()
     scene = team.render_scene(se3np, team.make_scene(synthetic, se3np),
@@ -1270,6 +1344,25 @@ def phase_indoor_rgbd_team(device="cuda"):
     first = team.run_team(scene, make_frontend, make_node, measurer,
                           sync=sync)
     launches = clustering.launch_dbscan.launches
+    mode = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        second, third = _restart_pair(team, scene, make_frontend, make_node,
+                                      measurer, cfg, device, sync)
+    finally:
+        torch.use_deterministic_algorithms(mode)
+    return _team_report(team, scene, render_s, first, second, third,
+                        launches, device)
+
+
+def _restart_pair(team, scene, make_frontend, make_node, measurer, cfg,
+                  device, sync):
+    """An uninterrupted run, and a run whose robot 1 is saved after half
+    the keyframes, dropped and restored (state and mirrors checked equal
+    to the saved node's)."""
+    import tempfile
+    import torch
+    from slide_slam_tpu_torch.io import checkpoint
     second = team.run_team(scene, make_frontend, make_node, measurer,
                            sync=sync)
 
@@ -1295,6 +1388,15 @@ def phase_indoor_rgbd_team(device="cuda"):
     third = team.run_team(scene, make_frontend, make_node, measurer,
                           restart_at=team.N_KEYFRAMES // 2, restart=restart,
                           sync=sync)
+    check(restored.get("keyframes") == team.N_KEYFRAMES // 2,
+          "robot 1 was not restarted")
+    return second, third
+
+
+def _team_report(team, scene, render_s, first, second, third, launches,
+                 device):
+    from slide_slam_tpu_torch.geometry import se3np
+    from slide_slam_tpu_torch.io import synthetic
     n = len(scene.stamps)
     frames = 2 * n
     tag_frames = sum(img is not None for img in scene.tag_images)
@@ -1304,7 +1406,7 @@ def phase_indoor_rgbd_team(device="cuda"):
               for r, node in enumerate(first.nodes)]
     errs = team.sighting_errors(se3np, scene, first.sightings)
     spread = team_gap(first, second)
-    gap = team_gap(first, third)
+    gap = team_gap(second, third)
     stats = dict(
         keyframes_per_robot=n, frames=frames, tag_frames=tag_frames,
         render_s=render_s, wall_s=first.wall_s,
@@ -1323,8 +1425,8 @@ def phase_indoor_rgbd_team(device="cuda"):
         measurements=sum(len(m) for _, _, m in first.measurements),
         overflow=[nd.overflow_report() for nd in first.nodes],
         dbscan_launches=launches,
-        restart_at_keyframe=restored.get("keyframes"),
-        two_run_gap_m=spread, restart_gap_m=gap)
+        restart_at_keyframe=team.N_KEYFRAMES // 2,
+        default_vs_deterministic_gap_m=spread, restart_gap_m=gap)
     print("[slice:indoor_rgbd_team] " + json.dumps(stats))
     print(f"[slice:indoor_rgbd_team] frames per second "
           f"{stats['frames_per_s']:.4f}")
@@ -1348,17 +1450,12 @@ def phase_indoor_rgbd_team(device="cuda"):
         check(dt <= TAG_TRANSLATION_M and dr <= TAG_ROTATION_DEG,
               f"keyframe {i}: tag pose {dt} m / {dr} deg off the truth")
     check(first.nodes[1].num_rel_factors >= 1, "no relative factor added")
-    check(restored.get("keyframes") == team.N_KEYFRAMES // 2,
-          "robot 1 was not restarted")
     check(team_decisions(second) == team_decisions(first),
-          "two uninterrupted card runs decided differently")
-    check(team_decisions(third) == team_decisions(first),
+          "the deterministic run decided differently from the default one")
+    check(team_decisions(third) == team_decisions(second),
           "the restored run decided differently from the uninterrupted one")
-    check(gap is not None and spread is not None
-          and gap <= max(RESTART_SPREAD_FACTOR * spread,
-                         RESTART_SPREAD_FLOOR_M),
-          f"restored run {gap} m from the uninterrupted one, two "
-          f"uninterrupted runs {spread} m apart")
+    check(gap is not None and gap <= RESTART_GAP_M,
+          f"restored run {gap} m from the uninterrupted one")
     for node in third.nodes:
         traj = node.optimized_trajectory()
         check(node.state.poses.device.type == device
@@ -1418,8 +1515,549 @@ def phase_card_vs_cpu_rgbd(devices=("cuda", "cpu")):
           f"m apart (card {card.wall_s:.1f} s, CPU {cpu.wall_s:.1f} s)")
 
 
+KITTI_SCANS = 4
+KITTI_SIZES = (1500, 4096, 8192)
+
+
+def kitti_dense_scan(rng):
+    """One dense scan of the KITTI preset's test (tests/test_frontend.py:
+    312-331): 300 ground points, a 4000-point car box, a 2000-point trunk,
+    with their KITTI labels (ground 40, car 10, tree 71)."""
+    from slide_slam_tpu_torch.io.synthetic import (synth_box_points,
+                                                   synth_tree_points)
+    g_xy = rng.uniform(-15, 15, (300, 2))
+    pts = [np.column_stack([g_xy, np.zeros(300)]),
+           synth_box_points(rng, [8.0, 2.0, 0.75], [2.0, 1.0, 0.8], 0.4,
+                            4000),
+           synth_tree_points(rng, [4.0, -4.0, 0.0], 0.3, n=2000)]
+    labels = np.concatenate([np.full(300, 40), np.full(4000, 10),
+                             np.full(2000, 71)])
+    return np.concatenate(pts).astype(np.float32), labels
+
+
+def kitti_sets(n, seed=9):
+    """[car, tree, lightpole] points padded to n with the KITTI preset's
+    stage parameters: a box of n - 96 points, a trunk of min(2000, n / 2)
+    and no lightpole (the dense scan's shape at any N)."""
+    from slide_slam_tpu_torch.frontend import clustering
+    from slide_slam_tpu_torch.frontend.pipeline import kitti_pipeline_config
+    from slide_slam_tpu_torch.io.synthetic import (synth_box_points,
+                                                   synth_tree_points)
+    rng = np.random.default_rng(seed)
+    sets = [synth_box_points(rng, [8.0, 2.0, 0.75], [2.0, 1.0, 0.8], 0.4,
+                             n - 96),
+            synth_tree_points(rng, [4.0, -4.0, 0.0], 0.3, n=min(2000, n // 2)),
+            np.zeros((0, 3))]
+    classes = {c.name: c for c in kitti_pipeline_config().classes}
+    pts = np.zeros((3, n, 3), np.float32)
+    valid = np.zeros((3, n), bool)
+    params = []
+    for c, (name, p) in enumerate(zip(("car", "tree", "lightpole"), sets)):
+        pts[c, :len(p)] = p
+        valid[c, :len(p)] = True
+        k = classes[name]
+        params.append(clustering.stage_params(
+            k.eps_noise, k.min_samples_noise, k.eps_cluster,
+            k.min_samples_cluster))
+    return pts, valid, np.stack(params)
+
+
+def phase_kernel_kitti():
+    """F1: the DBSCAN kernel above 1024 points. The KITTI preset at
+    max_points_per_class = 4096 runs over KITTI_SCANS dense scans through
+    the port's ProcessCloudPipeline on the card (one launch per scan, the
+    count set to 0 just before), and the kernel is held to the plain
+    version on the card, labels exactly equal, at N = 1500, 4096, 8192 (car,
+    tree, lightpole sets, both stages, one launch); times per scan from
+    CUDA graphs, the empty-kernel floor of the same launch shape, the plain
+    version's time and the card's bound."""
+    import dataclasses
+    import torch
+    from slide_slam_tpu_torch.frontend import clustering
+    from slide_slam_tpu_torch.frontend.pipeline import (ProcessCloudPipeline,
+                                                        kitti_pipeline_config)
+    from slide_slam_tpu_torch.geometry import se3np
+
+    cfg = dataclasses.replace(kitti_pipeline_config(),
+                              max_points_per_class=4096)
+    pipeline = ProcessCloudPipeline(cfg, device="cuda")
+    rng = np.random.default_rng(9)
+    scans = [kitti_dense_scan(rng) for _ in range(KITTI_SCANS)]
+    torch.cuda.synchronize()
+    clustering.launch_dbscan.launches = 0
+    for xyz, lab in scans:
+        obs = pipeline.process_scan(xyz, lab, se3np.identity())
+    torch.cuda.synchronize()
+    launches = clustering.launch_dbscan.launches
+    check(launches == KITTI_SCANS,
+          f"{launches} DBSCAN launches for {KITTI_SCANS} KITTI scans")
+    check(len(obs.get("cyl_root", [])) >= 1 and len(obs.get("cub_pose", []))
+          >= 1, "the KITTI scan gave no trunk or no car")
+
+    rows, max_err = {}, 0
+    for n in KITTI_SIZES:
+        pts, valid, params = (torch.as_tensor(a, device="cuda")
+                              for a in kitti_sets(n))
+        got = clustering.two_stage_cluster_batch(pts, valid, params)
+        ref = clustering.two_stage_cluster_reference(pts, valid, params)
+        torch.cuda.synchronize()
+        max_err = max(max_err, int((got.long() - ref.long()).abs().max()))
+        check(torch.equal(got, ref), f"dbscan kernel != plain at N = {n}: "
+              f"{int((got != ref).sum())} labels differ")
+        clusters = [int(torch.unique(r[r >= 0]).numel()) for r in ref]
+        ops = 0
+        for c in range(3):
+            e1, m1, e2, m2 = params[c].tolist()
+            lab1 = clustering._dbscan_plain(pts[c], valid[c], params[c, 0],
+                                            int(m1), 64)
+            ops += dbscan_work(pts[c], valid[c], math.sqrt(e1), int(m1))
+            ops += dbscan_work(pts[c], valid[c] & (lab1 >= 0), math.sqrt(e2),
+                               int(m2))
+        ms = graph_ms(lambda: clustering.launch_dbscan(pts, valid, params),
+                      per_graph=10, reps=5)
+        floor_ms = graph_ms(lambda: clustering.launch_empty(3, n=n))
+        plain_ms = cuda_ms(lambda: clustering.two_stage_cluster_reference(
+            pts, valid, params), 2)
+        bound, by = dbscan_bound(ops, pts.numel() * 4 + valid.numel()
+                                 + params.numel() * 4 + got.numel() * 4)
+        rows[n] = dict(ms=ms, floor_ms=floor_ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, ops=ops,
+                       points=[int(v.sum()) for v in valid],
+                       clusters=clusters,
+                       cluster_ctas=clustering.auto_cluster_size(n))
+        print(f"[kernel:dbscan:kitti] N = {n}, [3, {n}] car/tree/lightpole "
+              f"x 2 stages, one launch: points {rows[n]['points']}, clusters "
+              f"{clusters}: kernel {ms:.4f} ms  empty-kernel floor "
+              f"{floor_ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+              f"{bound:.6f} ms ({by}, {ops} ops)  labels equal")
+    return dict(launches=launches, max_abs_err=max_err, by_n=rows)
+
+
+# slice:unified_solo: the forest mission with SolverConfig(use_schur=False)
+# for as many keyframes (a multiple of UNIFIED_KF_STEP, at least 40, so
+# that the periodic full solve of keyframe 32 runs) as fit UNIFIED_BUDGET_S
+UNIFIED_BUDGET_S = 75.0
+UNIFIED_MIN_KEYFRAMES = 40
+UNIFIED_KF_STEP = 10
+# the JAX package's unified run of the same mission on the CPU
+# (scripts/jax_raw_lidar_reference.py --unified --snapshots 40,50,...,150):
+# ATE of the optimized trajectory after each count of keyframes; the gate is
+# 1.25 x
+JAX_UNIFIED_ATE_M = {40: 2.592837, 50: 3.545540, 60: 3.555642, 70: 3.427008,
+                     80: 3.223079, 90: 3.088337, 100: 3.115880,
+                     110: 3.295308, 120: 3.716517, 130: 4.805716,
+                     140: 5.665609, 150: 6.063597}
+
+
+def phase_unified_solo(forest):
+    return phase_slice(
+        forest, "unified_solo", unified=True, budget_s=UNIFIED_BUDGET_S,
+        ate_bound=lambda n: 1.25 * JAX_UNIFIED_ATE_M[n])
+
+
+# slice:spmd_team: the team step over bench.py's 3 robots, for SPMD_STEPS
+# steps or the multiple of 10 steps that fits SPMD_BUDGET_S
+SPMD_STEPS = 50
+SPMD_BUDGET_S = 60.0
+SPMD_TF_STEP = 10
+SPMD_CARD_VS_CPU_STEPS = 12
+# The JAX package's team step on the same inputs, on the CPU
+# (scripts/jax_spmd_team_reference.py; the port on the CPU gives the same
+# to 4 decimals): each robot's own ATE after every 10th step. Robot 1's is
+# not below its odometry's (0.246 vs 0.163 m at step 20, 0.584 vs 0.577 m
+# at step 50): the streamed merge anchors robot 2's chain at its drifted
+# first folded pose. So the gate is robot 0 (which merges both peers)
+# below its odometry, and every robot within 1.25 x the JAX run's ATE.
+JAX_SPMD_OWN_ATE_M = {10: (0.020720, 0.021883, 0.068252),
+                      20: (0.053551, 0.246387, 0.106094),
+                      30: (0.056063, 0.365503, 0.186872),
+                      40: (0.060625, 0.503023, 0.307808),
+                      50: (0.068492, 0.583950, 0.450031)}
+# The same run's overflow counters: 0 until step 40; between steps 40 and
+# 50 robot 0's replica drops 13 point landmarks and their 13 factors (its
+# point slots fill with the peers' points), in both packages. The gate is
+# every counter equal to the JAX run's.
+JAX_SPMD_OVERFLOW = {n: [[0] * 8] * 3 for n in (10, 20, 30, 40)}
+JAX_SPMD_OVERFLOW[50] = [[0, 0, 0, 13, 0, 0, 13, 0], [0] * 8, [0] * 8]
+
+
+def spmd_team_inputs(device):
+    """(cfg, packets per step, TFs, truths and odometry in each robot's own
+    frame) of the mission of mission_setup: each robot's frame is its first
+    odometry pose (its true start pose); a packet carries its keyframe's
+    odometry pose in that frame and its observations; robot 0 is given robot
+    1's frame and robot 1 robot 2's, from the true start poses."""
+    import types
+    import torch
+    from slide_slam_tpu_torch import config
+    from slide_slam_tpu_torch.comm.database import packet_from_obs
+    from slide_slam_tpu_torch.geometry import se3np
+    from slide_slam_tpu_torch.io import synthetic
+    from slide_slam_tpu_torch.objects import Cuboids, Cylinders, Ellipsoids
+    from slide_slam_tpu_torch.parallel.multirobot import KeyframePacket
+    from slide_slam_tpu_torch.runtime import engine
+    from slide_slam_tpu_torch.runtime.node import SlamNode
+
+    cfg, trajs, logs, _ = mission_setup(config, synthetic,
+                                        synthetic.relative_measurements)
+    starts = [log.keyframes[0].odom_pose for log in logs]
+    inv = [se3np.inverse(s) for s in starts]
+    local = [[se3np.compose(inv[r], kf.odom_pose) for kf in log.keyframes]
+             for r, log in enumerate(logs)]
+    truth = [np.stack([se3np.compose(inv[r], t) for t in traj])
+             for r, traj in enumerate(trajs)]
+    packer = types.SimpleNamespace(cfg=cfg)
+    steps = []
+    for k in range(SPMD_STEPS):
+        rows = []
+        for r, log in enumerate(logs):
+            kf = log.keyframes[k]
+            rel = (se3np.between(local[r][k - 1], local[r][k]) if k
+                   else se3np.identity())
+            p = packet_from_obs(kf.stamp, local[r][k], rel, vars(kf))
+            rows.append((local[r][k], rel, SlamNode._pack_obs(packer, p)))
+        packed = torch.as_tensor(np.stack([x[2] for x in rows]),
+                                 device=device)
+        parts = [engine.unpack_scan(packed[r]) for r in range(len(logs))]
+        stack = lambda i, cls: cls(*(torch.stack(f) for f in zip(
+            *(q[i] for q in parts))))
+        steps.append(KeyframePacket(
+            torch.as_tensor(np.stack([x[0] for x in rows]), device=device),
+            torch.as_tensor(np.stack([x[1] for x in rows]), device=device),
+            stack(0, Cylinders), stack(1, Cuboids), stack(2, Ellipsoids)))
+    tfs = {(0, 1): se3np.compose(inv[0], starts[1]),
+           (1, 2): se3np.compose(inv[1], starts[2])}
+    odom = [np.stack(x) for x in local]
+    return cfg, steps, tfs, truth, odom
+
+
+def run_spmd_team(device, n_steps, budget_s=None):
+    """The team step from empty replicas for n_steps (or until budget_s
+    has passed), the TFs given before step SPMD_TF_STEP; returns the
+    state after each step (on the host: integers and poses) and the ms of
+    each step."""
+    import torch
+    from slide_slam_tpu_torch.parallel import multirobot as mr
+    cfg, steps, tfs, truth, odom = spmd_team_inputs(device)
+    state = mr.make_spmd_state(cfg, device=device)
+    step = mr.build_spmd_step(cfg, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    snaps, ms = [], []
+    start = time.perf_counter()
+    for k in range(n_steps):
+        if k == SPMD_TF_STEP:
+            for (o, p), tf in tfs.items():
+                state = mr.set_tf(state, o, p, tf)
+        sync()
+        t0 = time.perf_counter()
+        state = step(state, steps[k])
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        snaps.append(state)
+        if (budget_s and (k + 1) % 10 == 0
+                and time.perf_counter() - start > budget_s):
+            break
+    return cfg, snaps, ms, truth, odom
+
+
+def _int_fields(state):
+    import torch
+    out = {f: getattr(state.graph, f).cpu() for f in state.graph._fields
+           if getattr(state.graph, f).dtype in (torch.int32, torch.bool)}
+    out["tf_valid"] = state.tf_valid.cpu()
+    return out
+
+
+def phase_spmd_team():
+    """The decentralized team step (parallel/multirobot.build_spmd_step) on
+    the card over the 3 robots of the multi-robot mission
+    (mission_capacity(150), every replica holding all three chains), each
+    robot's logged keyframes fed as packets; robot 0 learns robot 1's frame
+    and robot 1 robot 2's at step SPMD_TF_STEP, so the one-hop gossip gives
+    robot 0 robot 2's frame and the streamed merge folds peers' chains.
+    Gates: the first steps on the card equal the CPU's in every integer
+    and within the card_vs_cpu:mission pose bounds; robot 0 holds all three
+    chains and its own ATE is below its odometry's; every robot's own ATE
+    within 1.25 x the JAX package's over the same steps; every overflow
+    counter equal to the JAX run's (JAX_SPMD_OVERFLOW)."""
+    import torch
+    from slide_slam_tpu_torch.frontend import clustering
+    from slide_slam_tpu_torch.io import synthetic
+    torch.cuda.synchronize()
+    clustering.launch_dbscan.launches = 0
+    cfg, card, ms, truth, odom = run_spmd_team("cuda", SPMD_STEPS,
+                                               SPMD_BUDGET_S)
+    launches = clustering.launch_dbscan.launches
+    n = len(card)
+    P = cfg.capacity.max_poses_per_robot
+    final = card[-1]
+    counts = final.graph.pose_count.cpu().numpy()
+    poses = final.graph.poses.cpu().numpy()
+    own_ate, odom_ate = [], []
+    for r in range(3):
+        est = poses[r, r * P:r * P + counts[r, r]]
+        own_ate.append(synthetic.ate_rmse(est, truth[r][:len(est)],
+                                          align=False))
+        odom_ate.append(synthetic.ate_rmse(odom[r][:len(est)],
+                                           truth[r][:len(est)], align=False))
+    overflow = final.graph.overflow.cpu().numpy().tolist()
+    t0 = time.perf_counter()
+    _, cpu, _, _, _ = run_spmd_team("cpu", min(SPMD_CARD_VS_CPU_STEPS, n))
+    cpu_s = time.perf_counter() - t0
+    own_gap = peer_gap = 0.0
+    for k, (a, b) in enumerate(zip(card, cpu)):
+        ia, ib = _int_fields(a), _int_fields(b)
+        for f in ia:
+            check(torch.equal(ia[f], ib[f]),
+                  f"step {k}: {f} differs card vs CPU")
+        pa, pb = a.graph.poses.cpu().numpy(), b.graph.poses.cpu().numpy()
+        ca = a.graph.pose_count.cpu().numpy()
+        for r in range(3):
+            for q in range(3):
+                gap = float(np.abs(pa[r, q * P:q * P + ca[r, q], 4:7]
+                                   - pb[r, q * P:q * P + ca[r, q], 4:7])
+                            .max(initial=0.0))
+                if r == q:
+                    own_gap = max(own_gap, gap)
+                else:
+                    peer_gap = max(peer_gap, gap)
+    stats = dict(steps=n, ms_per_step=float(np.mean(ms[1:])),
+                 ms_first_step=ms[0], pose_count=counts.tolist(),
+                 tf_valid=final.tf_valid.cpu().numpy().tolist(),
+                 own_ate_m=own_ate, odometry_ate_m=odom_ate,
+                 jax_own_ate_m=list(JAX_SPMD_OWN_ATE_M[n]),
+                 overflow=overflow, jax_overflow=JAX_SPMD_OVERFLOW[n],
+                 dbscan_launches=launches,
+                 card_vs_cpu_steps=len(cpu), own_gap_m=own_gap,
+                 peer_gap_m=peer_gap, cpu_s=cpu_s,
+                 landmarks=final.graph.cyl_count.cpu().numpy().tolist())
+    print("[slice:spmd_team] " + json.dumps(stats))
+    check(own_gap <= CARD_VS_CPU_OWN_TOL and peer_gap <= CARD_VS_CPU_PEER_TOL,
+          f"card vs CPU chains {own_gap} / {peer_gap} m apart")
+    check((counts[0] > 0).all(), f"robot 0 holds chains {counts[0]}")
+    check(own_ate[0] < odom_ate[0],
+          f"robot 0's ATE {own_ate[0]} not below odometry's {odom_ate[0]}")
+    bound = [1.25 * a for a in JAX_SPMD_OWN_ATE_M[n]]
+    check(all(a <= b for a, b in zip(own_ate, bound)),
+          f"own ATE {own_ate} above 1.25 x the JAX run's {bound}")
+    check(overflow == JAX_SPMD_OVERFLOW[n],
+          f"overflow {overflow} != the JAX run's {JAX_SPMD_OVERFLOW[n]}")
+    check(launches == 0, "the team step launched the DBSCAN kernel")
+    return stats
+
+
+# check:sharded_solves: 4 shards on one card against the local solve of a
+# state where the solve has real work: the sharded tests' forest graph (25
+# keyframes, tests/test_torch_sharded.py) with every pose but the anchor
+# pushed off by SHARDED_KICK (5 cm, 0.01 rad per axis, from a seed), so the
+# local solve moves the poses ~12.6 cm and lowers the cost ~13x. The gates:
+# the sharded poses within SHARDED_POSE_TOL of the local solve's (the JAX
+# tests' bound, tests/test_distributed_ba.py) and its cost within
+# SHARDED_COST_RTOL of the local solve's, every integer field identical, and
+# the local solve must move the poses by more than 10 x SHARDED_POSE_TOL,
+# so a sharded solve that returned its input fails. On this sandbox's CPU a
+# chain counted n times (its sigma not inflated by sqrt(n)) lands 12.5 cm
+# from the local solve at a 7.6 % higher cost; the right one 4e-4 m and
+# 6e-6 (PERF.md). The mission's own graphs are not used: there the full
+# solve moves poses along weakly observed directions by the card's
+# summation noise (two local solves up to 9 mm apart).
+SHARDS = 4
+SHARDED_KICK = (0.05, 0.01)           # m, rad: sigma of the start's offsets
+SHARDED_POSE_TOL = 1e-2
+SHARDED_COST_RTOL = 1e-3
+
+
+def sharded_check_state(device):
+    """The sharded tests' state (25 forest keyframes through the port's
+    node on the CPU), its poses but the anchor retracted by seeded offsets
+    of SHARDED_KICK, on `device`."""
+    import torch
+    from slide_slam_tpu_torch import config, convert
+    from slide_slam_tpu_torch.geometry import se3
+    from slide_slam_tpu_torch.io import synthetic
+    from slide_slam_tpu_torch.runtime.node import SlamNode
+    cfg = config.SlamConfig(number_of_robots=2, capacity=config.CapacityConfig(
+        max_poses_per_robot=64, max_cylinders=128, max_cuboids=64,
+        max_points=64, max_scan_objects=32, max_cylinder_factors=1024,
+        max_cuboid_factors=512, max_point_factors=512,
+        max_between_factors=32))
+    rng = np.random.default_rng(0)
+    world = synthetic.make_forest_world(rng, n_trees=30, n_poles=6, n_cars=6,
+                                        extent=20.0)
+    traj = synthetic.lawnmower_trajectory(25, extent=16.0, rows=2, step=1.5)
+    log = synthetic.make_log(world, traj, odom_drift_sigma=0.02, seed=1)
+    node = SlamNode(cfg, robot_id=0, device="cpu")
+    for kf in log.keyframes:
+        node.process_keyframe(kf.stamp, kf.odom_pose, vars(kf))
+    state = node.state
+    n = int(state.pose_count[0])
+    kick = np.random.default_rng(7).normal(size=(n - 1, 6)) * np.repeat(
+        [SHARDED_KICK[1], SHARDED_KICK[0]], 3)
+    poses = state.poses.clone()
+    poses[1:n] = se3.retract(poses[1:n], torch.as_tensor(kick,
+                                                         dtype=poses.dtype))
+    state = state._replace(poses=poses)
+    return cfg, convert.state_from_numpy(convert.state_to_numpy(state),
+                                         device=device)
+
+
+def pose_gap(a, b):
+    """Largest gap of two [N, 7] pose tensors: translations, and quaternions
+    after aligning their signs (q and -q are one rotation)."""
+    import torch
+    qa, qb = a[:, :4], b[:, :4]
+    sign = torch.where((qa * qb).sum(-1, keepdim=True) < 0, -1.0, 1.0)
+    return max(float((a[:, 4:] - b[:, 4:]).abs().max()),
+               float((sign * qa - qb).abs().max()))
+
+
+def phase_sharded_solves(device="cuda"):
+    """distributed_solve (factor-sharded unified solve) and
+    landmark_sharded_solve (landmark-sharded Schur solve) with SHARDS
+    shards on the card (the shard axis a leading dimension, the shards in
+    lockstep), each held to the unsharded solve (engine.solve_full, the
+    default solver budget) of the same state on the card; `device` lets
+    the check be rehearsed on the CPU."""
+    import dataclasses
+    import torch
+    from slide_slam_tpu_torch.config import SolverConfig
+    from slide_slam_tpu_torch.factorgraph import solver
+    from slide_slam_tpu_torch.parallel import distributed_ba as dba
+    from slide_slam_tpu_torch.parallel import landmark_sharded as ls
+    from slide_slam_tpu_torch.runtime import engine
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    base, start = sharded_check_state(device)
+    out = {}
+    for name, schur_path, fn in (
+            ("factor_sharded_unified", False, dba.distributed_solve),
+            ("landmark_sharded_schur", True, ls.landmark_sharded_solve)):
+        cfg = base.replace(solver=dataclasses.replace(
+            SolverConfig(), use_schur=schur_path))
+        sync()
+        t0 = time.perf_counter()
+        local = engine.solve_full(cfg, start)
+        sync()
+        t1 = time.perf_counter()
+        sharded = fn(start, cfg, n_shards=SHARDS)
+        sync()
+        t2 = time.perf_counter()
+        again = engine.solve_full(cfg, start)
+        sig = (cfg.noise.cylinder, cfg.noise.bearing)
+        costs = [float(solver.cost(x, *sig))
+                 for x in (start, local, sharded, again)]
+        moved = pose_gap(start.poses, local.poses)
+        gap = pose_gap(sharded.poses, local.poses)
+        out[name] = dict(local_s=t1 - t0, sharded_s=t2 - t1,
+                         cost_start_local_sharded_again=costs,
+                         local_move_m=moved, sharded_gap_m=gap,
+                         local_spread_m=pose_gap(again.poses, local.poses))
+        check(moved > 10 * SHARDED_POSE_TOL,
+              f"{name}: the local solve moved the poses only {moved}")
+        check(gap <= SHARDED_POSE_TOL,
+              f"{name}: poses {gap} from the local solve's")
+        check(abs(costs[2] - costs[1]) <= SHARDED_COST_RTOL * costs[1],
+              f"{name}: cost {costs[2]} against the local solve's "
+              f"{costs[1]}")
+        for f, a in zip(sharded._fields, sharded):
+            if a.dtype in (torch.int32, torch.bool):
+                check(torch.equal(a, getattr(local, f)),
+                      f"{name}: {f} differs from the local solve's")
+    print(f"[check:sharded_solves] {SHARDS} shards: " + json.dumps(out))
+    return out
+
+
+def phase_native_dsd(maps):
+    """The native runtime core and CLIPPER's DSD rounding: the C++ queues
+    fed the mission's logs (odometry, observations, relative measurements,
+    ticked at every stamp) pop the same keyframe sequence as the Python
+    scheduler, InputManager(use_native=True) takes the C++ queues; a
+    SlideGraph search between the final maps of robots 0 and 1 of
+    slice:multi_robot_mission with rounding="dsd" gives the same inlier
+    set on the card and on the CPU."""
+    from collections import deque
+    from slide_slam_tpu_torch import config, native
+    from slide_slam_tpu_torch.io import synthetic
+    from slide_slam_tpu_torch.place_recognition import clipper, slidegraph
+    from slide_slam_tpu_torch.runtime import scheduler as sch
+    from slide_slam_tpu_torch.runtime.input_manager import InputManager
+    from slide_slam_tpu_torch.runtime.node import SlamNode
+
+    t0 = time.perf_counter()
+    check(native.available(), "the native runtime core did not build")
+    cfg, _, logs, rel = mission_setup(config, synthetic,
+                                      synthetic.relative_measurements)
+    popped = 0
+    for log in logs:
+        q = native.NativeQueues()
+        odom_q, obs_q, rel_q = deque(), deque(), deque()
+        latest = None
+        mine = [m for rid, m in rel if rid == log.robot_id]
+        for kf in log.keyframes:
+            q.push_odom(kf.stamp, kf.odom_pose)
+            odom_q.append(sch.StampedPose(stamp=kf.stamp, pose=kf.odom_pose))
+            q.push_observation(kf.stamp, kf.odom_pose, None)
+            obs_q.append(sch.Observation(stamped_pose=sch.StampedPose(
+                stamp=kf.stamp, pose=kf.odom_pose)))
+            for m in [m for m in mine if m.stamp == kf.stamp]:
+                q.push_relative(m.stamp, m.odom_pose, None, m.robot_index,
+                                m.only_use_odom)
+                rel_q.append(m)
+            now = kf.stamp + cfg.msg_delay_tolerance
+            while True:
+                got = q.pick_next(now, cfg.msg_delay_tolerance,
+                                  cfg.min_odom_distance)
+                want = sch.pick_next_measurement(
+                    odom_q, obs_q, rel_q, latest, now,
+                    cfg.msg_delay_tolerance, cfg.min_odom_distance)
+                check(got[0] == want, f"robot {log.robot_id}: native queue "
+                      f"picked {got[0]}, the Python one {want}")
+                if want == sch.MEAS_NONE:
+                    break
+                dq = {sch.MEAS_ODOM: odom_q, sch.MEAS_OBSERVATION: obs_q,
+                      sch.MEAS_RELATIVE: rel_q}[want]
+                item = dq.popleft()
+                stamp = item.stamped_pose.stamp if want == \
+                    sch.MEAS_OBSERVATION else item.stamp
+                check(abs(got[1] - stamp) < 1e-9,
+                      f"robot {log.robot_id}: stamps {got[1]} vs {stamp}")
+                pose = (item.stamped_pose.pose if want == sch.MEAS_OBSERVATION
+                        else item.odom_pose if want == sch.MEAS_RELATIVE
+                        else item.pose)
+                latest = sch.StampedPose(stamp=stamp, pose=pose)
+                q.pop(want)
+                q.set_latest_odom(stamp, pose)
+                popped += 1
+    im = InputManager(cfg, SlamNode(cfg, 0, device="cuda"), use_native=True)
+    check(im.use_native, "InputManager(use_native=True) fell back")
+
+    ref, qry = maps
+    tm, sm = slidegraph._triangulate(ref[:, 1:3].astype(np.float64))
+    td, sd = slidegraph._triangulate(qry[:, 1:3].astype(np.float64))
+    pairs, _, _ = slidegraph.vote_associations(
+        tm, sm, td, sd, cfg.slidegraph.descriptor_matching_threshold, 2048)
+    params = clipper.ClipperParams(sigma=cfg.slidegraph.sigma,
+                                   epsilon=cfg.slidegraph.epsilon)
+    pts_m = ref[pairs[:, 0], 1:3].astype(np.float64)
+    pts_d = qry[pairs[:, 1], 1:3].astype(np.float64)
+    card, cpu = (clipper.dense_clique_inliers(pts_m, pts_d, params,
+                                              rounding="dsd", device=dev)
+                 for dev in ("cuda", "cpu"))
+    check(np.array_equal(card, cpu),
+          f"DSD inliers differ card vs CPU: {len(card)} vs {len(cpu)}")
+    merge = len(card) >= cfg.slidegraph.num_inliers_threshold
+    tf = (slidegraph.estimate_tf_2d(pts_m[card], pts_d[card]).tolist()
+          if merge else None)
+    stats = dict(popped=popped, associations=len(pairs),
+                 dsd_inliers=len(card), merge=merge, tf=tf,
+                 seconds=time.perf_counter() - t0)
+    print("[check:native_dsd] " + json.dumps(stats))
+    check(merge, "the DSD-rounded search found no merge between robots 0 "
+          "and 1")
+    return stats
+
+
 def phase_urban(urban):
-    stats, per_kf = phase_slice(urban, "urban_lidar_solo", urban=True,
+    stats, per_kf, _ = phase_slice(urban, "urban_lidar_solo", urban=True,
                                 ate_bound=URBAN_ATE_BOUND_M,
                                 snapshot_at=NET_REPORT_AT)
     check(stats["landmarks"]["cuboids"] > 0,
@@ -1467,17 +2105,23 @@ def main():
         urban = synthetic.make_lidar_mission(n_cars=URBAN_CARS)
         kern = run("kernel:dbscan", phase_kernel, forest)
         urb = run("kernel:dbscan:urban", phase_kernel_urban, urban)
+        kitti = run("kernel:dbscan:kitti", phase_kernel_kitti)
         run("net:range_segmentator", phase_net, urban)
         forest_run = run("slice:raw_lidar_solo", phase_slice, forest)
         run("card_vs_cpu", phase_card_vs_cpu, forest, forest_run[1])
+        unified = run("slice:unified_solo", phase_unified_solo, forest)
         urban_run = run("slice:urban_lidar_solo", phase_urban, urban)
         run("card_vs_cpu:urban", phase_card_vs_cpu, urban, urban_run[1],
             True)
         loop = run("slice:net_in_the_loop", phase_net_in_the_loop, urban,
                    urban_run[0]["at_keyframe"])
         indoor = run("slice:indoor_lidar", phase_indoor)
-        mission = run("slice:multi_robot_mission", phase_multi_robot_mission)
+        mission, maps = run("slice:multi_robot_mission",
+                            phase_multi_robot_mission)
+        run("check:native_dsd", phase_native_dsd, maps)
+        run("check:sharded_solves", phase_sharded_solves)
         run("card_vs_cpu:mission", phase_card_vs_cpu_mission)
+        team = run("slice:spmd_team", phase_spmd_team)
         rgbd_team = run("slice:indoor_rgbd_team", phase_indoor_rgbd_team)
         run("card_vs_cpu:indoor_rgbd", phase_card_vs_cpu_rgbd)
     except Exception as e:  # every failed phase fails the run
@@ -1493,19 +2137,26 @@ def main():
         "net_in_the_loop": loop["dbscan_launches"],
         "indoor_lidar": indoor["dbscan_launches"],
         "multi_robot_mission": mission["dbscan_launches"],
-        "indoor_rgbd_team": rgbd_team["dbscan_launches"]}
+        "indoor_rgbd_team": rgbd_team["dbscan_launches"],
+        "kitti_dense": kitti["launches"],
+        "unified_solo": unified[0]["dbscan_launches"],
+        "spmd_team": team["dbscan_launches"]}
     print(json.dumps({"kernels": [{
         "name": "dbscan", "route": "cuda",
         "source": "slide_slam_tpu_torch/csrc/dbscan.cu",
         "replaces": "slide_slam_tpu/frontend/clustering_pallas.py:29",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max(kern["max_abs_err"], urb["max_abs_err"]),
+        "max_abs_err": max(kern["max_abs_err"], urb["max_abs_err"],
+                           kitti["max_abs_err"]),
         "ms": kern["ms"], "floor_ms": kern["floor_ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": None,
         "urban_c3": {k: urb[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by")},
+        "kitti_c3": {str(n): {k: r[k] for k in ("ms", "floor_ms", "plain_ms",
+                                                "bound_ms", "bound_by")}
+                     for n, r in kitti["by_n"].items()},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

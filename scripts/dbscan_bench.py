@@ -24,7 +24,13 @@ from a CUDA graph of back-to-back launches (no host in the way):
   beforehand), in turns with the current kernel: old, new, new, old;
 * `variants`: sources with the current C entry point, each in turns with
   the current kernel (current, variants, variants reversed, current) at
-  cluster sizes 4, 8, 16, labels checked against the plain version.
+  cluster sizes 4, 8, 16, labels checked against the plain version;
+* `parent`: a source with the C entry point of the N <= 1024-only kernel
+  (no scratch argument, e.g. the parent commit's csrc/dbscan.cu), timed in
+  turns with the current kernel (parent, current, current, parent) at the
+  cluster size the library picks, on the forest scan's [2, 1024] batch and
+  on the urban path's [3, 1024] car/tree/lightpole batch (chip_smoke's
+  kernel:dbscan and kernel:dbscan:urban inputs), labels checked.
 """
 import argparse
 import ctypes
@@ -79,20 +85,26 @@ def plain_one_stage(points, valid, eps2, min_samples):
         int(min_samples), 64)
 
 
-def with_current_entry(lib: ctypes.CDLL) -> ctypes.CDLL:
-    lib.dbscan_two_stage_launch.argtypes = [P, P, P, P, I, I, I, I, I, P]
+def with_current_entry(lib: ctypes.CDLL, scratch: bool = True) -> ctypes.CDLL:
+    """The current C entry point, or (scratch=False) the N <= 1024-only
+    one, which has no scratch argument."""
+    lib.dbscan_two_stage_launch.argtypes = (
+        [P, P, P, P] + [P] * scratch + [I, I, I, I, I, P])
     lib.dbscan_two_stage_launch.restype = I
+    lib.no_scratch = not scratch
     return lib
 
 
 def launcher(lib, pts, valid, params, stages=2, max_iters=64, cluster=0):
-    """A launch of a library with the current C entry point."""
+    """A launch of a library with the current C entry point (or the
+    N <= 1024-only one, for a library marked no_scratch)."""
     def fn():
         lab = torch.empty(valid.shape, dtype=torch.int32, device="cuda")
+        scratch = () if getattr(lib, "no_scratch", False) else (None,)
         err = lib.dbscan_two_stage_launch(
             pts.data_ptr(), valid.view(torch.uint8).data_ptr(),
-            params.data_ptr(), lab.data_ptr(), pts.shape[0], pts.shape[1],
-            stages, max_iters, cluster,
+            params.data_ptr(), lab.data_ptr(), *scratch, pts.shape[0],
+            pts.shape[1], stages, max_iters, cluster,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
@@ -123,6 +135,46 @@ def old_scan_fn(lib, pts, valid, params):
     return fn, probs
 
 
+def urban_batch():
+    """The urban path's [3, 1024] car/tree/lightpole batch of
+    chip_smoke.phase_kernel_urban: the keyframe with the most points in
+    those classes, padded to 1024, with the outdoor classes' parameters."""
+    from slide_slam_tpu_torch.frontend.pipeline import outdoor_classes
+    urban = synthetic.make_lidar_mission(n_cars=chip_smoke.URBAN_CARS)
+    specs = [c for c in outdoor_classes() if c.model != "ground"]
+    names = tuple((c.name, c.label) for c in specs)
+
+    def clustered(k):
+        _, labels = chip_smoke.class_labels(urban, k)
+        return sum(min(int((labels == lab).sum()), 1024) for _, lab in names)
+    k = max(range(len(urban.scans)), key=clustered)
+    inputs = chip_smoke.slice_inputs(urban, k, names)
+    cuda = lambda a: torch.as_tensor(a, device="cuda")
+    return (torch.stack([cuda(inputs[c.name][0]) for c in specs]),
+            torch.stack([cuda(inputs[c.name][1]) for c in specs]),
+            torch.stack([cuda(clustering.stage_params(
+                c.eps_noise, c.min_samples_noise, c.eps_cluster,
+                c.min_samples_cluster)) for c in specs]))
+
+
+def parent_turns(cur, parent):
+    """The current kernel and a parent build of the N <= 1024-only kernel
+    in turns (parent, current, current, parent) at the auto cluster size,
+    on the forest scan and the urban batch."""
+    parent = with_current_entry(parent, scratch=False)
+    out = {}
+    for name, (pts, valid, params) in (("forest_c2", scan_batch()),
+                                       ("urban_c3", urban_batch())):
+        ref = clustering.two_stage_cluster_reference(pts, valid, params)
+        fns = {"parent": launcher(parent, pts, valid, params),
+               "current": launcher(cur, pts, valid, params)}
+        equal = {w: bool(torch.equal(f(), ref)) for w, f in fns.items()}
+        out[name] = {"labels_equal": equal,
+                     "turns": [(w, us(fns[w])) for w in
+                               ("parent", "current", "current", "parent")]}
+    return out
+
+
 def profiled_kernel_us(fn, reps=50):
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -149,6 +201,8 @@ def main():
     ap.add_argument("--old", type=Path, help="older single-problem source")
     ap.add_argument("--variants", type=Path, nargs="*", default=[],
                     help="sources with the current C entry point")
+    ap.add_argument("--parent", type=Path,
+                    help="a source with the N <= 1024-only C entry point")
     ap.add_argument("--breakdown", action="store_true")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
     a = ap.parse_args()
@@ -209,6 +263,8 @@ def main():
             (name, cl, us(launcher(libs[name], pts, valid, params,
                                    cluster=cl)))
             for name in order for cl in (4, 8, 16)]
+    if a.parent:
+        res["parent_turns_us"] = parent_turns(cur, build_other(a.parent))
     res["clocks"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,

@@ -14,6 +14,13 @@ same world with 15 cars (make_lidar_mission(n_cars=15)), the outdoor
 classes with the car branch (PipelineConfig()), and the urban capacity
 (chip_smoke.urban_capacity).
 
+--unified runs either package with SolverConfig(use_schur=False), the
+unified-variable solve (chip_smoke.py's phase slice:unified_solo), and
+--snapshots K1,K2,... records, after each of those keyframe counts, the
+optimized trajectory's ATE so far, the map's median root error (each
+mapped cylinder root's XY distance to the nearest true one) and the
+landmark counts.
+
 --port --jax-draws feeds the port's RANSAC ground fits the JAX package's
 own draws (jax.random.PRNGKey(0)), so the two packages fit the same
 hypotheses; --out writes the per-keyframe cylinder and cuboid measurement
@@ -21,7 +28,8 @@ counts and landmark counts, and --compare A.json B.json lists the keyframes
 where two such files differ.
 
     JAX_PLATFORMS=cpu python scripts/jax_raw_lidar_reference.py [n_keyframes]
-        [--urban] [--port [--jax-draws]] [--out counts.json]
+        [--urban] [--unified] [--snapshots 31,32] [--port [--jax-draws]]
+        [--out counts.json]
     python scripts/jax_raw_lidar_reference.py --compare A.json B.json
 """
 import argparse
@@ -47,13 +55,28 @@ def jax_ransac_draws(n_rows: int, n_hypotheses: int) -> np.ndarray:
         jnp.iinfo(jnp.int32).max))
 
 
+def _solver(config, cfg, unified):
+    if not unified:
+        return cfg
+    import dataclasses
+    return cfg.replace(solver=dataclasses.replace(cfg.solver,
+                                                  use_schur=False))
+
+
+def _root_errors(node, world):
+    n = node.landmark_counts()["cylinders"]
+    roots = np.asarray(node.state.cyl_root[:n])
+    return [float(np.linalg.norm(world.cyl_root[:, :2] - r[:2], axis=1).min())
+            for r in roots]
+
+
 def _capacity(config, urban):
     if urban:
         return chip_smoke.urban_capacity(config)
     return config.mission_capacity(150, n_cylinders=140)
 
 
-def _jax_parts(m, holder, urban):
+def _jax_parts(m, holder, urban, unified=False):
     from slide_slam_tpu import config
     from slide_slam_tpu.frontend import lidar_pipeline as jlp
     from slide_slam_tpu.frontend import pipeline as jpipe
@@ -67,10 +90,10 @@ def _jax_parts(m, holder, urban):
     cfg = config.forest_config().replace(
         number_of_robots=1, turn_off_intra_loop_closure=True,
         capacity=_capacity(config, urban))
-    return frontend, SlamNode(cfg, robot_id=0)
+    return frontend, SlamNode(_solver(config, cfg, unified), robot_id=0)
 
 
-def _port_parts(m, holder, draws, urban):
+def _port_parts(m, holder, draws, urban, unified=False):
     from slide_slam_tpu_torch import config
     from slide_slam_tpu_torch.frontend import lidar_pipeline as tlp
     from slide_slam_tpu_torch.frontend import pipeline as tpipe
@@ -84,7 +107,8 @@ def _port_parts(m, holder, draws, urban):
     cfg = config.forest_config().replace(
         number_of_robots=1, turn_off_intra_loop_closure=True,
         capacity=_capacity(config, urban))
-    return frontend, SlamNode(cfg, robot_id=0, device="cpu")
+    return frontend, SlamNode(_solver(config, cfg, unified), robot_id=0,
+                              device="cpu")
 
 
 def compare(a_path: str, b_path: str):
@@ -107,20 +131,22 @@ def compare(a_path: str, b_path: str):
 
 
 def main(n_keyframes: int = 150, port: bool = False, jax_draws: bool = False,
-         out: str = None, urban: bool = False):
+         out: str = None, urban: bool = False, unified: bool = False,
+         snapshots=()):
     m = synthetic.make_lidar_mission(
         n_keyframes=n_keyframes, n_cars=chip_smoke.URBAN_CARS if urban else 0)
     holder = {"pose": m.traj[0]}
     if port:
         frontend, node = _port_parts(
-            m, holder, jax_ransac_draws if jax_draws else None, urban)
+            m, holder, jax_ransac_draws if jax_draws else None, urban,
+            unified)
         package = ("slide_slam_tpu_torch (CPU, "
                    f"{'JAX' if jax_draws else 'torch.Generator'} RANSAC draws)")
     else:
-        frontend, node = _jax_parts(m, holder, urban)
+        frontend, node = _jax_parts(m, holder, urban, unified)
         package = "slide_slam_tpu (JAX, CPU)"
     t0 = time.perf_counter()
-    per_meas, per_lm = [], []
+    per_meas, per_lm, at = [], [], {}
     for i, scan in enumerate(m.scans):
         holder["pose"] = m.traj[i]
         stamp = 1000.0 + 0.5 * i
@@ -132,6 +158,14 @@ def main(n_keyframes: int = 150, port: bool = False, jax_draws: bool = False,
         node.process_keyframe(stamp, m.odom[i], obs)
         lm = node.landmark_counts()
         per_lm.append([lm["cylinders"], lm["cuboids"]])
+        if i + 1 in snapshots:
+            est = np.asarray(node.optimized_trajectory())
+            at[i + 1] = dict(
+                ate_optimized_m=synthetic.ate_rmse(est, m.traj[:len(est)],
+                                                   align=False),
+                median_root_error_m=float(np.median(
+                    _root_errors(node, m.world))),
+                landmarks=lm)
     est = np.asarray(node.optimized_trajectory())
     if out:
         Path(out).write_text(json.dumps({"package": package,
@@ -143,6 +177,8 @@ def main(n_keyframes: int = 150, port: bool = False, jax_draws: bool = False,
         "ate_optimized_m": synthetic.ate_rmse(est, m.traj, align=False),
         "ate_odometry_m": synthetic.ate_rmse(m.odom, m.traj, align=False),
         "mission": "urban" if urban else "forest",
+        "solver": "unified" if unified else "schur",
+        "at_keyframe": at,
         "cylinder_measurements": sum(c for c, _ in per_meas),
         "cuboid_measurements": sum(k for _, k in per_meas),
         "landmarks": node.landmark_counts(),
@@ -160,6 +196,10 @@ if __name__ == "__main__":
                     help="with --port: the JAX package's RANSAC draws")
     ap.add_argument("--urban", action="store_true",
                     help="the urban mission (15 cars, the car branch)")
+    ap.add_argument("--unified", action="store_true",
+                    help="SolverConfig(use_schur=False): the unified solve")
+    ap.add_argument("--snapshots", default="",
+                    help="keyframe counts to record ATE and root error at")
     ap.add_argument("--out", help="write per-keyframe counts to this file")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
                     help="compare two --out files and exit")
@@ -167,4 +207,5 @@ if __name__ == "__main__":
     if a.compare:
         compare(*a.compare)
     else:
-        main(a.n_keyframes, a.port, a.jax_draws, a.out, a.urban)
+        main(a.n_keyframes, a.port, a.jax_draws, a.out, a.urban, a.unified,
+             tuple(int(k) for k in a.snapshots.split(",") if k))

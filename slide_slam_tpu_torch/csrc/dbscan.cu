@@ -45,6 +45,22 @@
 // sweep), and __syncthreads_or ends the loop when nothing changed. The band
 // owners read the first stage's labels back from the leader for the second.
 //
+// Above 1024 points (up to kBigMaxPoints = 12288 per set), a second kernel,
+// dbscan_big_kernel, takes the same call: the N x N bitmask (2 MiB at
+// N = 4096, 8 MiB at 8192) no longer fits a CTA, so it lives word-major in a
+// scratch buffer in global memory that the wrapper allocates (it stays in
+// the 50 MB L2). Every CTA of the cluster compacts the set itself, in
+// chunks of 1024 with a running offset, into its own shared memory (16 B per
+// point: 192 KiB at 12288 points, which sets the cap). CTA r builds the row
+// tiles r, r + cluster, ... as above, a warp per (row tile, column part),
+// and writes the words and its rows' core bits to the scratch buffer. The
+// sweeps are spread over the cluster: CTA r owns the labels of the rows it
+// built. Labels live double-buffered in the scratch buffer and the
+// "changed" words of a sweep too: after each sweep, one __threadfence and
+// one cluster barrier, then every CTA reads all changed words into its
+// shared memory and the OR of them is the cluster-wide "anything changed".
+// Whatever one CTA wrote and another reads goes through L2 (__ldcg/__stcg).
+//
 // What bounds it: not the card's memory or arithmetic rate (a scan's four
 // problems are ~1 M pair tests and 30 KB), but latency: the launch, four
 // cluster barriers, and ~8-11 synchronous sweeps per stage on one SM. The
@@ -334,16 +350,341 @@ dbscan_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ valid,
     labels[static_cast<size_t>(set) * n + t] = s.out[t];
 }
 
-// Same launch shape and shared memory, no work: the launch floor.
-__global__ void __launch_bounds__(kThreads, 1) empty_kernel(int) {}
+// ---------------------------------------------------------------------------
+// N > 1024: the adjacency, its nonzero-word masks, labels and changed words
+// in a global scratch buffer, the sweeps spread over the cluster.
+
+constexpr int kBigMaxPoints = 12288;
+constexpr int kBigMaxWords = kBigMaxPoints / 32;   // 32-point tiles
+constexpr int kBigMaxMasks = kBigMaxWords / 32;    // words of a tile mask
+
+struct BigSmem {
+  // the compacted points while the adjacency is built, then every row's
+  // label (the previous sweep's, refreshed after each sweep)
+  float pts[3 * kBigMaxPoints];
+  int32_t idx[kBigMaxPoints];             // compacted -> original index
+  float box[kBigMaxWords][6];             // per 32-point tile: lo xyz, hi xyz
+  uint32_t core[kBigMaxWords];            // core bits of every row
+  uint32_t chg[kBigMaxWords];             // rows the last sweep changed
+  uint32_t core_nz[kBigMaxMasks];         // tiles holding a core row
+  uint32_t chg_nz[kBigMaxMasks];          // tiles holding a changed row
+  int32_t deg[kThreads];                  // degrees of a group of row tiles
+  int32_t warp_off[kWarps];
+  int32_t n_valid;
+};
+
+// int32 words of one set's scratch: adjacency W x n, nonzero-word masks
+// M x n, labels 2 x n, the first stage's labels n, core words W, changed
+// words 2 x W (W = ceil(n / 32) tiles, M = ceil(W / 32)).
+__host__ __device__ inline size_t big_scratch_words(int n) {
+  const size_t w = (static_cast<size_t>(n) + 31) / 32;
+  const size_t m = (w + 31) / 32;
+  return (w + m + 3) * n + 3 * w;
+}
+
+// Compact the set's points in order into s.idx and the coordinates, in
+// chunks of 1024 with a running offset, and the tiles' boxes. A point is
+// kept where valid[i] (prev == nullptr) or prev[i] >= 0 (the first stage's
+// labels, written in this launch: read through L2). Returns the count.
+__device__ int compact_big(BigSmem& s, const float* __restrict__ pts,
+                           const uint8_t* __restrict__ valid,
+                           const int32_t* prev, int n) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  float* cx = s.pts;
+  float* cy = s.pts + kBigMaxPoints;
+  float* cz = s.pts + 2 * kBigMaxPoints;
+  int base = 0;
+  for (int c0 = 0; c0 < n; c0 += kThreads) {
+    const int i = c0 + t;
+    const bool f = i < n && (prev ? __ldcg(prev + i) >= 0 : valid[i] != 0);
+    const uint32_t b = __ballot_sync(kFull, f);
+    if (lane == 0) s.warp_off[warp] = __popc(b);
+    __syncthreads();
+    if (warp == 0) {
+      const int v = s.warp_off[lane];
+      int incl = v;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += u;
+      }
+      s.warp_off[lane] = incl - v;
+      if (lane == 31) s.n_valid = incl;
+    }
+    __syncthreads();
+    if (f) {
+      const int pos = base + s.warp_off[warp] + __popc(b & ((1u << lane) - 1u));
+      s.idx[pos] = i;
+      cx[pos] = pts[3 * i];
+      cy[pos] = pts[3 * i + 1];
+      cz[pos] = pts[3 * i + 2];
+    }
+    base += s.n_valid;
+    __syncthreads();              // warp_off and n_valid serve the next chunk
+  }
+  const int W = (base + 31) >> 5;
+  const float inf = __int_as_float(0x7f800000);
+  for (int w = warp; w < W; w += kWarps) {
+    const int j = w * 32 + lane;
+    const bool in = j < base;
+    const float lo[3] = {warp_min(in ? cx[j] : inf), warp_min(in ? cy[j] : inf),
+                         warp_min(in ? cz[j] : inf)};
+    const float hi[3] = {warp_max(in ? cx[j] : -inf),
+                         warp_max(in ? cy[j] : -inf),
+                         warp_max(in ? cz[j] : -inf)};
+    if (lane == 0) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        s.box[w][d] = lo[d];
+        s.box[w][3 + d] = hi[d];
+      }
+    }
+  }
+  __syncthreads();
+  return base;
+}
+
+// This CTA's row tiles rank, rank + csize, ... of the adjacency into the
+// scratch buffer (word w of row i at adj[w * n + i]), each row's mask of
+// nonzero words (bit w & 31 of nzw[(w >> 5) * n + i]) and the core words.
+// Up to 32 row tiles at a time; a tile's mask words are split over up to
+// kWarps / tiles warps, whose degrees meet in s.deg.
+__device__ void build_big(BigSmem& s, uint32_t* adj, uint32_t* nzw,
+                          uint32_t* core_g, int n, int nv, int rank, int csize,
+                          float eps2, int min_samples) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const float* cx = s.pts;
+  const float* cy = s.pts + kBigMaxPoints;
+  const float* cz = s.pts + 2 * kBigMaxPoints;
+  const int W = (nv + 31) >> 5;
+  const int M = (W + 31) >> 5;
+  const int n_rt = rank < W ? (W - rank + csize - 1) / csize : 0;
+  for (int g0 = 0; g0 < n_rt; g0 += kWarps) {
+    const int tiles = min(kWarps, n_rt - g0);
+    const int parts = min(kWarps / tiles, M);
+    const int per = (M + parts - 1) / parts;      // mask words per part
+    s.deg[t] = 0;
+    __syncthreads();
+    if (warp < tiles * parts) {
+      const int k = warp % tiles, part = warp / tiles;
+      const int rt = rank + (g0 + k) * csize;
+      const int row = rt * 32 + lane;
+      const float* rx = cx + rt * 32;
+      const float* ry = cy + rt * 32;
+      const float* rz = cz + rt * 32;
+      int deg = 0;
+      for (int mw = part * per; mw < min(M, (part + 1) * per); ++mw) {
+        uint32_t nz = 0;
+        for (int ct = mw * 32; ct < min(W, mw * 32 + 32); ++ct) {
+          uint32_t mine = 0;
+          if (box_gap2(s.box[rt], s.box[ct]) <= eps2) {
+            const int j = ct * 32 + lane;
+            const float xj = cx[j], yj = cy[j], zj = cz[j];
+#pragma unroll
+            for (int r = 0; r < 32; ++r) {
+              const float d2 = dist2(rx[r], ry[r], rz[r], xj, yj, zj);
+              const uint32_t word = __ballot_sync(kFull, d2 <= eps2);
+              if (lane == r) mine = word;
+            }
+            const int left = nv - ct * 32;
+            if (left < 32) mine &= (1u << left) - 1u;
+          }
+          if (row < nv) __stcg(adj + static_cast<size_t>(ct) * n + row, mine);
+          deg += __popc(mine);
+          if (mine) nz |= 1u << (ct & 31);
+        }
+        if (row < nv) __stcg(nzw + static_cast<size_t>(mw) * n + row, nz);
+      }
+      atomicAdd(&s.deg[k * 32 + lane], deg);
+    }
+    __syncthreads();
+    if (warp < tiles) {
+      const int rt = rank + (g0 + warp) * csize;
+      const int row = rt * 32 + lane;
+      const uint32_t cb =
+          __ballot_sync(kFull, row < nv && s.deg[t] >= min_samples);
+      if (lane == 0) __stcg(core_g + rt, cb);
+    }
+    __syncthreads();
+  }
+}
+
+// Read `words` (W of them) from the scratch buffer into `dst` and their
+// tile mask into `nz`. Returns whether any word is nonzero. Every thread
+// calls it; it ends in a block barrier.
+__device__ int read_words(const uint32_t* words, int W, uint32_t* dst,
+                          uint32_t* nz) {
+  const int t = threadIdx.x;
+  const uint32_t c = t < W ? __ldcg(words + t) : 0u;
+  if (t < kBigMaxWords) dst[t] = c;
+  const uint32_t b = __ballot_sync(kFull, c != 0);
+  if ((t & 31) == 0 && (t >> 5) < kBigMaxMasks) nz[t >> 5] = b;
+  return __syncthreads_or(c != 0);
+}
+
+// min over the row's neighbours j with a bit in `mask` of lab[j], seeded
+// with m: the row's words with a set bit in nzw & mask_nz, ANDed with mask.
+// The row's mask words are read first, then its adjacency words eight at a
+// time, so that up to eight L2 reads are in flight instead of one.
+__device__ __forceinline__ int32_t min_over(const uint32_t* adj,
+                                            const uint32_t* nzw,
+                                            const uint32_t* mask,
+                                            const uint32_t* mask_nz,
+                                            const int32_t* lab, int n, int M,
+                                            int row, int32_t m) {
+  uint32_t tiles[kBigMaxMasks];
+#pragma unroll
+  for (int mw = 0; mw < kBigMaxMasks; ++mw)
+    tiles[mw] = mw < M && mask_nz[mw]
+                    ? mask_nz[mw] & __ldcg(nzw + static_cast<size_t>(mw) * n + row)
+                    : 0u;
+#pragma unroll
+  for (int mw = 0; mw < kBigMaxMasks; ++mw) {
+    uint32_t left = tiles[mw];
+    while (left) {
+      int w[8];
+      uint32_t a[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        w[q] = mw * 32 + __ffs(left) - 1;   // -1 + mw * 32 once left is 0
+        a[q] = left ? __ldcg(adj + static_cast<size_t>(w[q]) * n + row) &
+                          mask[w[q]]
+                    : 0u;
+        left &= left - 1;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        uint32_t bits = a[q];
+        while (bits) {
+          const int b = __ffs(bits) - 1;
+          bits &= bits - 1;
+          m = min(m, lab[w[q] * 32 + b]);
+        }
+      }
+    }
+  }
+  return m;
+}
+
+// The synchronous sweeps, each CTA over its own rows, reading every row's
+// previous label from its shared copy; the rows a sweep changed go through
+// the scratch buffer to every CTA after one cluster barrier. Then border
+// points and labels by original index into dst (which holds -1 already).
+__device__ void sweep_big(BigSmem& s, const uint32_t* adj,
+                          const uint32_t* nzw, const uint32_t* core_g,
+                          uint32_t* chg_g, int32_t* lab_g, int32_t* dst,
+                          int n, int nv, int rank, int csize, int max_iters,
+                          cg::cluster_group& cluster) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int W = (nv + 31) >> 5;
+  const int M = (W + 31) >> 5;
+  const int n_rt = rank < W ? (W - rank + csize - 1) / csize : 0;
+  int32_t* lab = reinterpret_cast<int32_t*>(s.pts);
+  // every row's core bit; a core row's first label is its own index, and
+  // the first sweep reads every core row (as if all had changed)
+  int any = read_words(core_g, W, s.core, s.core_nz);
+  read_words(core_g, W, s.chg, s.chg_nz);
+  for (int i = t; i < nv; i += kThreads)
+    lab[i] = (s.core[i >> 5] >> (i & 31)) & 1u ? i : kInf;
+  __syncthreads();
+
+  for (int it = 0, cur = 0; any && it < max_iters; ++it, cur ^= 1) {
+    int32_t* next = lab_g + static_cast<size_t>(cur) * n;
+    uint32_t* moved_g = chg_g + cur * W;
+    for (int k = warp; k < n_rt; k += kWarps) {
+      const int rt = rank + k * csize;
+      const int row = rt * 32 + lane;
+      bool changed = false;
+      if (row < nv && ((s.core[rt] >> lane) & 1u)) {
+        const int32_t old = lab[row];
+        const int32_t m =
+            min_over(adj, nzw, s.chg, s.chg_nz, lab, n, M, row, old);
+        changed = m != old;
+        if (changed) __stcg(next + row, m);
+      }
+      const uint32_t moved = __ballot_sync(kFull, changed);
+      if (lane == 0) __stcg(moved_g + rt, moved);
+    }
+    __threadfence();
+    cluster.sync();
+    any = read_words(moved_g, W, s.chg, s.chg_nz);
+    for (int i = t; i < nv; i += kThreads)
+      if ((s.chg[i >> 5] >> (i & 31)) & 1u) lab[i] = __ldcg(next + i);
+    __syncthreads();
+  }
+
+  for (int k = warp; k < n_rt; k += kWarps) {
+    const int rt = rank + k * csize;
+    const int row = rt * 32 + lane;
+    if (row >= nv) continue;
+    const int32_t m =
+        (s.core[rt] >> lane) & 1u
+            ? lab[row]
+            : min_over(adj, nzw, s.core, s.core_nz, lab, n, M, row, kInf);
+    __stcg(dst + s.idx[row], m < kInf ? s.idx[m] : -1);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+dbscan_big_kernel(const float* __restrict__ pts,
+                  const uint8_t* __restrict__ valid,
+                  const float* __restrict__ params, int32_t* labels,
+                  int32_t* scratch, int n, int stages, int max_iters) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BigSmem& s = *reinterpret_cast<BigSmem*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int set = blockIdx.x / csize;
+  const int W = (n + 31) >> 5;
+  const int M = (W + 31) >> 5;
+  int32_t* mine = scratch + static_cast<size_t>(set) * big_scratch_words(n);
+  uint32_t* adj = reinterpret_cast<uint32_t*>(mine);
+  uint32_t* nzw = adj + static_cast<size_t>(W) * n;
+  int32_t* lab_g = reinterpret_cast<int32_t*>(nzw + static_cast<size_t>(M) * n);
+  int32_t* out1 = lab_g + 2 * static_cast<size_t>(n);
+  uint32_t* core_g = reinterpret_cast<uint32_t*>(out1 + n);
+  uint32_t* chg_g = core_g + W;
+  int32_t* out = labels + static_cast<size_t>(set) * n;
+  const float* p = pts + static_cast<size_t>(set) * n * 3;
+  const uint8_t* v = valid + static_cast<size_t>(set) * n;
+
+  // -1 everywhere first: a stage writes only the labels of its points
+  for (int i = rank * kThreads + threadIdx.x; i < n; i += csize * kThreads) {
+    __stcg(out + i, -1);
+    __stcg(out1 + i, -1);
+  }
+  for (int stage = 0; stage < stages; ++stage) {
+    const float eps2 = params[set * 4 + 2 * stage];
+    const int min_samples = static_cast<int>(params[set * 4 + 2 * stage + 1]);
+    const int nv = compact_big(s, p, v, stage > 0 ? out1 : nullptr, n);
+    build_big(s, adj, nzw, core_g, n, nv, rank, csize, eps2, min_samples);
+    __threadfence();
+    cluster.sync();
+    sweep_big(s, adj, nzw, core_g, chg_g, lab_g,
+              stage + 1 < stages ? out1 : out, n, nv, rank, csize, max_iters,
+              cluster);
+    // the first stage's labels are read by every CTA, and the scratch
+    // buffer is free again, only after every CTA is done with this stage
+    if (stage + 1 < stages) {
+      __threadfence();
+      cluster.sync();
+    }
+  }
+}
+
+// Same launch shape and shared memory as the kernel of struct S, no work:
+// the launch floor.
+template <typename S>
+__global__ void __launch_bounds__(kThreads, 1) empty_kernel(S*) {}
 
 // Shared memory and the non-portable cluster sizes, set once per kernel.
-template <typename... KArgs>
+template <typename S, typename... KArgs>
 cudaError_t prepare(void (*kernel)(KArgs...)) {
   static cudaError_t err = [kernel] {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(sizeof(Smem)));
+        static_cast<int>(sizeof(S)));
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -352,12 +693,13 @@ cudaError_t prepare(void (*kernel)(KArgs...)) {
   return err;
 }
 
-cudaLaunchConfig_t launch_config(int sets, int cluster, cudaStream_t stream,
+cudaLaunchConfig_t launch_config(int sets, int cluster, size_t smem,
+                                 cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(sets * cluster);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = sizeof(Smem);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = cluster;
@@ -371,68 +713,96 @@ cudaLaunchConfig_t launch_config(int sets, int cluster, cudaStream_t stream,
 // The cluster size that `cluster = 0` stands for: 16 CTAs where the card
 // can place a cluster that large (an H100 SXM's GPCs hold 16 or more SMs),
 // else the portable 8.
-int auto_cluster() {
-  static const int chosen = [] {
-    if (prepare(dbscan_kernel) != cudaSuccess) return 8;
+template <typename S, typename... KArgs>
+int auto_cluster(void (*kernel)(KArgs...)) {
+  static const int chosen = [kernel] {
+    if (prepare<S>(kernel) != cudaSuccess) return 8;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = launch_config(1, 16, nullptr, &attr);
+    const cudaLaunchConfig_t cfg =
+        launch_config(1, 16, sizeof(S), nullptr, &attr);
     int fits = 0;
-    const cudaError_t e =
-        cudaOccupancyMaxActiveClusters(&fits, dbscan_kernel, &cfg);
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&fits, kernel, &cfg);
     if (e != cudaSuccess) cudaGetLastError();   // not sticky: clear it
     return e == cudaSuccess && fits >= 1 ? 16 : 8;
   }();
   return chosen;
 }
 
-// Launch `kernel` as `sets` clusters of `cluster` CTAs.
-template <typename... KArgs, typename... Args>
+// Launch `kernel`, whose shared memory is S, as `sets` clusters of
+// `cluster` CTAs.
+template <typename S, typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), int sets, int cluster,
                    cudaStream_t stream, Args... args) {
-  cudaError_t err = prepare(kernel);
+  cudaError_t err = prepare<S>(kernel);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config(sets, cluster ? cluster : auto_cluster(), stream, &attr);
+  const cudaLaunchConfig_t cfg = launch_config(
+      sets, cluster ? cluster : auto_cluster<S>(kernel), sizeof(S), stream,
+      &attr);
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 bool bad_shape(int sets, int n, int cluster) {
-  return sets < 1 || n < 1 || n > kMaxPoints || cluster < 0 || cluster > 16 ||
-         (cluster & (cluster - 1)) != 0;
+  return sets < 1 || n < 1 || n > kBigMaxPoints || cluster < 0 ||
+         cluster > 16 || (cluster & (cluster - 1)) != 0;
 }
 
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream` and
-// returns the launch's CUDA error (0 on success); neither synchronises.
+// returns the launch's CUDA error (0 on success); none synchronises.
 //
 // points [sets, n, 3] f32, valid [sets, n] u8, params [sets, 4] f32 =
 // (eps_1^2, min_samples_1, eps_2^2, min_samples_2), labels [sets, n] i32;
-// stages 1 (first DBSCAN only) or 2; cluster CTAs per set (1..16, a power
-// of two; above 8 needs a GPC with that many free SMs), or 0 for 16 where
-// the card can place it, else 8.
+// n <= 1024 runs the shared-memory kernel, 1024 < n <= 12288 the global-
+// memory one, with `scratch` of dbscan_scratch_words(n) int32 per set (null
+// for n <= 1024); stages 1 (first DBSCAN only) or 2; cluster CTAs per set
+// (1..16, a power of two; above 8 needs a GPC with that many free SMs), or
+// 0 for 16 where the card can place it, else 8.
 extern "C" int dbscan_two_stage_launch(const float* points,
                                        const uint8_t* valid,
                                        const float* params, int32_t* labels,
-                                       int sets, int n, int stages,
-                                       int max_iters, int cluster,
+                                       int32_t* scratch, int sets, int n,
+                                       int stages, int max_iters, int cluster,
                                        void* stream) {
-  if (bad_shape(sets, n, cluster) || stages < 1 || stages > 2 || max_iters < 0)
+  if (bad_shape(sets, n, cluster) || stages < 1 || stages > 2 ||
+      max_iters < 0 || (n > kMaxPoints && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch(dbscan_kernel, sets, cluster,
-                                 static_cast<cudaStream_t>(stream), points,
-                                 valid, params, labels, n, stages, max_iters));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= kMaxPoints)
+    return static_cast<int>(launch<Smem>(dbscan_kernel, sets, cluster, st,
+                                          points, valid, params, labels, n,
+                                          stages, max_iters));
+  return static_cast<int>(launch<BigSmem>(dbscan_big_kernel, sets, cluster,
+                                          st, points, valid, params, labels,
+                                          scratch, n, stages, max_iters));
 }
 
-extern "C" int dbscan_empty_launch(int sets, int cluster, void* stream) {
-  if (bad_shape(sets, 1, cluster))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch(empty_kernel, sets, cluster,
-                                 static_cast<cudaStream_t>(stream), 0));
+// int32 words of scratch per set that dbscan_two_stage_launch needs at n.
+extern "C" long long dbscan_scratch_words(int n) {
+  return n > kMaxPoints ? static_cast<long long>(big_scratch_words(n)) : 0;
 }
 
-// The cluster size that `cluster = 0` launches with.
-extern "C" int dbscan_auto_cluster() { return auto_cluster(); }
+// The largest n the kernels take.
+extern "C" int dbscan_max_points() { return kBigMaxPoints; }
+
+extern "C" int dbscan_empty_launch(int sets, int n, int cluster,
+                                   void* stream) {
+  if (bad_shape(sets, n, cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= kMaxPoints)
+    return static_cast<int>(launch<Smem>(empty_kernel<Smem>, sets, cluster,
+                                         st, static_cast<Smem*>(nullptr)));
+  return static_cast<int>(launch<BigSmem>(empty_kernel<BigSmem>, sets,
+                                          cluster, st,
+                                          static_cast<BigSmem*>(nullptr)));
+}
+
+// The cluster size that `cluster = 0` launches with at n.
+extern "C" int dbscan_auto_cluster(int n) {
+  return n <= kMaxPoints ? auto_cluster<Smem>(dbscan_kernel)
+                         : auto_cluster<BigSmem>(dbscan_big_kernel);
+}

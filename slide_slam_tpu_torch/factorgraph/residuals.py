@@ -30,6 +30,15 @@ def cylinder_residual(pose, lm, meas_local):
                       (meas_local[..., 6] - lm[..., 6])[..., None]], dim=-1)
 
 
+def cylinder_to_local(lm_world, pose):
+    """World-frame cylinder 7-vec -> body frame (graph.cpp:188-190 projects
+    by pose^-1 before storing the factor)."""
+    inv = se3.inverse(pose)
+    return torch.cat([se3.rotate(inv, lm_world[..., 0:3]),
+                      se3.apply(inv, lm_world[..., 3:6]),
+                      lm_world[..., 6:7]], dim=-1)
+
+
 def cylinder_retract(lm, delta):
     return lm + delta
 

@@ -15,6 +15,12 @@ port does not copy it, so it has no such flag: its sums are the exact ones
 of both JAX branches.
 CUDA's `index_add_` sums in an order that changes from run to run, so two
 runs on the card agree to float32 rounding, not bit for bit.
+
+The JAX version's `axis_name` (a landmark-sharded solve, parallel/
+landmark_sharded.py) becomes a `reduce` callable, the identity by default:
+the pose-side sums that must be global on every shard (the damping diagonal,
+the block preconditioner, the reduced matvec, the right-hand side, the cost)
+pass through it, at the points where the JAX version psums.
 """
 from __future__ import annotations
 
@@ -88,9 +94,11 @@ def _diag(blocks):
 
 
 def build_operands(s: GraphState, cyl_sigma, bearing_sigma, lam,
-                   block_precond: bool = True) -> SchurOperands:
+                   block_precond: bool = True,
+                   reduce=solver._identity) -> SchurOperands:
     """Everything the reduced-system PCG needs, built once per outer GN
-    iteration."""
+    iteration; `reduce` sums the damping diagonal and the preconditioner's
+    blocks over the shards of a landmark-sharded solve."""
     RP = s.poses.shape[0]
     NC = s.cyl_ray.shape[0]
     NL = NC + s.cub_pose.shape[0] + s.pt_pos.shape[0]
@@ -125,9 +133,9 @@ def build_operands(s: GraphState, cyl_sigma, bearing_sigma, lam,
     g_p = g_p + _scatter_rows(bidx, bf_g, RP)
 
     sq = lambda J: torch.einsum("fri,fri->fi", J, J)
-    diag_p = (_diag(Dp) + sq(lin.od_Jj) + _shift_to_prev(sq(lin.od_Ji))
-              + _scatter_rows(bidx, torch.cat([sq(lin.bf_Ji), sq(lin.bf_Jj)]),
-                              RP))
+    diag_p = reduce(
+        _diag(Dp) + sq(lin.od_Jj) + _shift_to_prev(sq(lin.od_Ji))
+        + _scatter_rows(bidx, torch.cat([sq(lin.bf_Ji), sq(lin.bf_Jj)]), RP))
 
     if block_precond:
         gram = lambda J: torch.einsum("fri,frj->fij", J, J)
@@ -135,8 +143,8 @@ def build_operands(s: GraphState, cyl_sigma, bearing_sigma, lam,
         bf_p = _scatter_rows(bidx, torch.cat([gram(lin.bf_Ji),
                                               gram(lin.bf_Jj)]), RP)
         eye6 = torch.eye(6, dtype=dt, device=dev)
-        S_diag = (Dp + gram(lin.od_Jj) + _shift_to_prev(gram(lin.od_Ji)) + bf_p
-                  - _scatter_rows(pidx, corr_f, RP)
+        S_diag = (reduce(Dp + gram(lin.od_Jj) + _shift_to_prev(gram(lin.od_Ji))
+                         + bf_p - _scatter_rows(pidx, corr_f, RP))
                   + lam * diag_p[:, :, None] * eye6 + 1e-6 * eye6)
         prec_inv = torch.linalg.inv(S_diag)
     else:
@@ -161,8 +169,9 @@ def _bmtv(M, v):
     return torch.einsum("nij,ni->nj", M, v)
 
 
-def s_matvec(op: SchurOperands, x, lam):
-    """S x on the reduced pose system."""
+def s_matvec(op: SchurOperands, x, lam, reduce=solver._identity):
+    """S x on the reduced pose system; `reduce` sums the shards' parts (x
+    and the result are replicated, op.diag_p is already global)."""
     x = _project(op.frozen, x)
     RP = x.shape[0]
     hx = _bmv(op.Dp, x)
@@ -180,24 +189,27 @@ def s_matvec(op: SchurOperands, x, lam):
     z = _scatter_rows(op.lidx, t, op.Hll_inv.shape[0])           # [NL, 9]
     w = _bmv(op.Hll_inv, z)
     u = _bmv(op.A, w[op.lidx])                                   # [F, 6]
-    hx = hx - _scatter_rows(op.pidx, u, RP) + lam * op.diag_p * x
+    hx = reduce(hx - _scatter_rows(op.pidx, u, RP)) + lam * op.diag_p * x
     return _project(op.frozen, hx)
 
 
-def solve_reduced(op: SchurOperands, lam, pcg_iters, pcg_tol, step_tol=0.0):
-    """PCG on the reduced pose system; returns (dp [RP,6], dl [NL,9])."""
+def solve_reduced(op: SchurOperands, lam, pcg_iters, pcg_tol, step_tol=0.0,
+                  reduce=solver._identity):
+    """PCG on the reduced pose system; returns (dp [RP,6], dl [NL,9]): dp
+    replicated over the shards of a landmark-sharded solve, dl each shard's
+    own landmark block."""
     RP = op.g_p.shape[0]
     NL = op.g_l.shape[0]
     w0 = _bmv(op.Hll_inv, op.g_l)
-    b = -op.g_p + _scatter_rows(op.pidx, _bmv(op.A, w0[op.lidx]), RP)
+    b = reduce(-op.g_p + _scatter_rows(op.pidx, _bmv(op.A, w0[op.lidx]), RP))
     b = _project(op.frozen, b)
     if op.prec_inv.shape[0]:
         precond = lambda r: _bmv(op.prec_inv, r)
     else:
         scalar = 1.0 / (op.diag_p * (1.0 + lam) + 1e-8)
         precond = lambda r: r * scalar
-    dp = solver.pcg(lambda x: s_matvec(op, x, lam), b, precond, pcg_iters,
-                    pcg_tol, step_tol)
+    dp = solver.pcg(lambda x: s_matvec(op, x, lam, reduce), b, precond,
+                    pcg_iters, pcg_tol, step_tol)
     hlp_dp = _scatter_rows(op.lidx, _bmtv(op.A, dp[op.pidx]), NL)
     dl = _bmv(op.Hll_inv, -op.g_l - hlp_dp)
     dl = torch.where(op.lm_active[:, None], dl, torch.zeros_like(dl))
@@ -212,16 +224,19 @@ def solve(s: GraphState, *, cyl_sigma: float, bearing_sigma: float,
           outer_iters: int, pcg_iters: int, pcg_tol: float = 1e-6,
           lam: float = 1e-6, rel_tol: float = 1e-6,
           line_search: bool = True, block_precond: bool = True,
-          step_tol: float = 0.0) -> GraphState:
+          step_tol: float = 0.0, reduce=solver._identity) -> GraphState:
     """Schur-eliminated damped Gauss-Newton. The outer loop reads its stop
-    flag on the host once per iteration (at most `outer_iters` reads)."""
+    flag on the host once per iteration (at most `outer_iters` reads).
+    `reduce`: a landmark-sharded solve (poses replicated and summed,
+    landmarks and their factors local per shard)."""
     NC = s.cyl_ray.shape[0]
     NK = s.cub_pose.shape[0]
     scales = torch.tensor([1.0, 0.5, 0.25], dtype=s.poses.dtype,
                           device=s.poses.device)
     for _ in range(int(outer_iters)):
-        op = build_operands(s, cyl_sigma, bearing_sigma, lam, block_precond)
-        dp, dl = solve_reduced(op, lam, pcg_iters, pcg_tol, step_tol)
+        op = build_operands(s, cyl_sigma, bearing_sigma, lam, block_precond,
+                            reduce)
+        dp, dl = solve_reduced(op, lam, pcg_iters, pcg_tol, step_tol, reduce)
         dp = solver.clamp_rows(_finite(dp))
         dl = solver.clamp_rows(_finite(dl))
         dx = solver.Tangent(pose=dp, cyl=dl[:NC, :7], cub=dl[NC:NC + NK],
@@ -229,10 +244,10 @@ def solve(s: GraphState, *, cyl_sigma: float, bearing_sigma: float,
         if not line_search:
             s = solver.retract_state(s, dx)
             continue
-        c0 = solver.cost(s, cyl_sigma, bearing_sigma)
+        c0 = solver.cost(s, cyl_sigma, bearing_sigma, reduce)
         costs = torch.stack([
             solver.cost(solver.retract_state(s, solver.tree_scale(a, dx)),
-                        cyl_sigma, bearing_sigma) for a in scales])
+                        cyl_sigma, bearing_sigma, reduce) for a in scales])
         best = torch.argmin(costs)
         accept = costs[best] < c0
         alpha = torch.where(accept, scales[best], torch.zeros_like(c0))

@@ -1,5 +1,5 @@
-"""Linearization, cost, retraction and PCG (PyTorch twin of the parts of
-slide_slam_tpu/factorgraph/solver.py that the Schur solve uses).
+"""Linearization, cost, retraction, PCG and the unified-variable solve
+(PyTorch twin of slide_slam_tpu/factorgraph/solver.py).
 
 Every factor family is linearized as one batch with the analytic Jacobians
 (tangent at zero, right retraction p <- p Exp([omega, v])). The anchor pose
@@ -10,6 +10,14 @@ of carrying the reference's sigma=1e-6 prior.
 it runs blocks of PCG_BLOCK iterations with a device-side `active` flag
 that freezes the carry once the loop would have stopped, and reads the flag
 back once per block. The result is identical to the early-exit loop.
+
+`solve` is the unified-variable damped Gauss-Newton (SolverConfig.use_schur
+= False): every variable is a row of one [NV, 9] tangent and every factor a
+row of one [F, 2, 9, 9] Jacobian array. The JAX version sums factor rows
+into variables with bf16x3 one-hot matmuls inside PCG (a TPU workaround);
+here every such sum is an exact f32 `index_add_`. Its `axis_name` psum
+becomes an explicit `reduce` callable (identity by default) that a sharded
+solve passes in: the sum of a tensor over the shards, replicated on each.
 """
 from __future__ import annotations
 
@@ -176,8 +184,14 @@ def clamp_rows(x: torch.Tensor, max_norm: float = 10.0) -> torch.Tensor:
     return x * torch.clamp(max_norm / torch.clamp(n, min=1e-12), max=1.0)
 
 
-def cost(s: GraphState, cyl_sigma, bearing_sigma) -> torch.Tensor:
-    """Residual-only cost (0-d tensor), used by the line search."""
+def _identity(x):
+    return x
+
+
+def cost(s: GraphState, cyl_sigma, bearing_sigma,
+         reduce=_identity) -> torch.Tensor:
+    """Residual-only cost (0-d tensor), used by the line search; `reduce`
+    sums it over the shards of a sharded solve."""
     prev = _prev_slot(s)
     od = res.between_residual(s.poses[prev], s.poses, s.odom_rel) / s.odom_sigma
     bf = res.between_residual(s.poses[_l(s.bf_i)], s.poses[_l(s.bf_j)],
@@ -195,8 +209,9 @@ def cost(s: GraphState, cyl_sigma, bearing_sigma) -> torch.Tensor:
         _masked(m, r)[0] for m, r in ((s.odom_valid(), od), (s.bf_valid(), bf),
                                       (s.cf_valid(), cf), (s.kf_valid(), kf),
                                       (s.uf_valid(), uf)))
-    return 0.5 * (torch.sum(od ** 2) + torch.sum(bf ** 2) + torch.sum(cf ** 2)
-                  + torch.sum(kf ** 2) + torch.sum(uf ** 2))
+    return reduce(0.5 * (torch.sum(od ** 2) + torch.sum(bf ** 2)
+                         + torch.sum(cf ** 2) + torch.sum(kf ** 2)
+                         + torch.sum(uf ** 2)))
 
 
 def retract_state(s: GraphState, dx: Tangent) -> GraphState:
@@ -274,3 +289,165 @@ def pcg(hv_fn, b: torch.Tensor, precond_apply, max_iters: int, tol: float,
         if not bool((k < max_iters) & (rz > thresh)):
             break
     return x
+
+
+# ---------------------------------------------------------------------------
+# Packed normal equations: one unified variable space, one factor array.
+# ---------------------------------------------------------------------------
+
+
+class Packed(NamedTuple):
+    r: torch.Tensor     # [F, 9]       whitened residuals, zero-padded
+    J: torch.Tensor     # [F, 2, 9, 9] per-side whitened Jacobians
+    idx: torch.Tensor   # [F, 2] int64 unified variable indices
+
+
+def _var_offsets(s: GraphState):
+    RP = s.poses.shape[0]
+    NC = s.cyl_ray.shape[0]
+    NK = s.cub_pose.shape[0]
+    NU = s.pt_pos.shape[0]
+    return RP, RP + NC, RP + NC + NK, RP + NC + NK + NU
+
+
+def _pad_rj(r, J, rdim, vdim):
+    return (torch.nn.functional.pad(r, (0, 9 - rdim)),
+            torch.nn.functional.pad(J, (0, 9 - vdim, 0, 9 - rdim)))
+
+
+def pack_indices(s: GraphState) -> torch.Tensor:
+    """[F, 2] unified variable indices of every factor (odometry, between,
+    cylinder, cuboid, bearing-range), constant over one solve."""
+    RP, oc, ok, _ = _var_offsets(s)
+    ar = torch.arange(RP, device=s.poses.device)
+    return torch.cat([
+        torch.stack([torch.clamp(ar - 1, min=0), ar], dim=1),
+        torch.stack([s.bf_i.long(), s.bf_j.long()], dim=1),
+        torch.stack([s.cf_pose.long(), RP + s.cf_lm.long()], dim=1),
+        torch.stack([s.kf_pose.long(), oc + s.kf_lm.long()], dim=1),
+        torch.stack([s.uf_pose.long(), ok + s.uf_lm.long()], dim=1),
+    ], dim=0)
+
+
+def pack_linearization(s: GraphState, lin: Linearization,
+                       idx: torch.Tensor = None) -> Packed:
+    """The typed per-family linearizations as one factor array."""
+    od_r, od_J1 = _pad_rj(lin.od_r, lin.od_Ji, 6, 6)
+    _, od_J2 = _pad_rj(lin.od_r, lin.od_Jj, 6, 6)
+    bf_r, bf_J1 = _pad_rj(lin.bf_r, lin.bf_Ji, 6, 6)
+    _, bf_J2 = _pad_rj(lin.bf_r, lin.bf_Jj, 6, 6)
+    cf_r, cf_J1 = _pad_rj(lin.cf_r, lin.cf_Jp, 7, 6)
+    _, cf_J2 = _pad_rj(lin.cf_r, lin.cf_Jl, 7, 7)
+    kf_r, kf_J1 = _pad_rj(lin.kf_r, lin.kf_Jp, 9, 6)
+    uf_r, uf_J1 = _pad_rj(lin.uf_r, lin.uf_Jp, 4, 6)
+    _, uf_J2 = _pad_rj(lin.uf_r, lin.uf_Jl, 4, 3)
+    r = torch.cat([od_r, bf_r, cf_r, kf_r, uf_r], dim=0)
+    J = torch.cat([torch.stack([od_J1, od_J2], dim=1),
+                   torch.stack([bf_J1, bf_J2], dim=1),
+                   torch.stack([cf_J1, cf_J2], dim=1),
+                   torch.stack([kf_J1, lin.kf_Jl], dim=1),
+                   torch.stack([uf_J1, uf_J2], dim=1)], dim=0)
+    return Packed(r, J, pack_indices(s) if idx is None else idx)
+
+
+def _project_x(s: GraphState, x: torch.Tensor) -> torch.Tensor:
+    """Zero the frozen-anchor rows of a unified tangent [NV, 9]."""
+    frozen = torch.nn.functional.pad(_frozen_pose_mask(s),
+                                     (0, x.shape[0] - s.poses.shape[0]))
+    return torch.where(frozen[:, None], torch.zeros_like(x), x)
+
+
+def x_to_tangent(s: GraphState, x: torch.Tensor) -> Tangent:
+    RP, oc, ok, ou = _var_offsets(s)
+    return Tangent(pose=x[:RP, :6], cyl=x[RP:oc, :7], cub=x[oc:ok, :9],
+                   pt=x[ok:ou, :3])
+
+
+def _reduce_to_vars(s: GraphState, idx, y):
+    """Rows of y [F, 2, D...] summed into [NV, D...] (exact f32)."""
+    NV = _var_offsets(s)[3]
+    out = torch.zeros((NV,) + tuple(y.shape[2:]), dtype=y.dtype,
+                      device=y.device)
+    return out.index_add_(0, idx.reshape(-1), y.reshape((-1,) + out.shape[1:]))
+
+
+def gradient_packed(s: GraphState, p: Packed, reduce=_identity):
+    """g = J^T r on the unified space."""
+    g = _reduce_to_vars(s, p.idx, torch.einsum("fsij,fi->fsj", p.J, p.r))
+    return _project_x(s, reduce(g))
+
+
+def diagonal_packed(s: GraphState, p: Packed, reduce=_identity):
+    """diag(J^T J) per variable row."""
+    return reduce(_reduce_to_vars(
+        s, p.idx, torch.einsum("fsij,fsij->fsj", p.J, p.J)))
+
+
+def hessian_vec_packed(s: GraphState, p: Packed, x: torch.Tensor, lam,
+                       diag: torch.Tensor, reduce=_identity):
+    """(J^T J + lam diag) x: one gather, two einsums, one segment sum; the
+    damping uses the already reduced diagonal."""
+    x = _project_x(s, x)
+    Jv = torch.einsum("fsij,fsj->fi", p.J, x[p.idx])
+    hv = reduce(_reduce_to_vars(s, p.idx,
+                                torch.einsum("fsij,fi->fsj", p.J, Jv)))
+    return _project_x(s, hv + lam * diag * x)
+
+
+def block_diagonal_packed(s: GraphState, p: Packed, reduce=_identity):
+    """Per-variable [9, 9] blocks of J^T J (block-Jacobi preconditioner)."""
+    return reduce(_reduce_to_vars(
+        s, p.idx, torch.einsum("fski,fskj->fsij", p.J, p.J)))
+
+
+def _block_precond_inverse(b, lam):
+    """Invert (B + lam diag(B) + 1e-6 I) per [9, 9] block."""
+    eye = torch.eye(9, dtype=b.dtype, device=b.device)
+    diag = torch.diagonal(b, dim1=-2, dim2=-1)
+    return torch.linalg.inv(b + lam * diag[..., None] * eye + 1e-6 * eye)
+
+
+def solve(s: GraphState, *, cyl_sigma: float, bearing_sigma: float,
+          outer_iters: int, pcg_iters: int, pcg_tol: float = 1e-6,
+          lam: float = 1e-6, rel_tol: float = 1e-6, reduce=_identity,
+          block_precond: bool = False, line_search: bool = True,
+          step_tol: float = 0.0) -> GraphState:
+    """Unified-variable damped Gauss-Newton with the 3-scale backtracking
+    line search (JAX solver.solve). The outer loop reads its stop flag on
+    the host once per iteration. `reduce` sums over the shards of a
+    factor-sharded solve (parallel/distributed_ba.py)."""
+    idx = pack_indices(s)
+    scales = torch.tensor([1.0, 0.5, 0.25], dtype=s.poses.dtype,
+                          device=s.poses.device)
+    for _ in range(int(outer_iters)):
+        lin = linearize(s, cyl_sigma, bearing_sigma)
+        packed = pack_linearization(s, lin, idx)
+        g = gradient_packed(s, packed, reduce)
+        diag = diagonal_packed(s, packed, reduce)
+        if block_precond:
+            inv_b = _block_precond_inverse(
+                block_diagonal_packed(s, packed, reduce), lam)
+            precond = lambda r: torch.einsum("nij,nj->ni", inv_b, r)
+        else:
+            scalar = 1.0 / (diag * (1.0 + lam) + 1e-8)
+            precond = lambda r: r * scalar
+        dx = pcg(lambda x: hessian_vec_packed(s, packed, x, lam, diag,
+                                              reduce),
+                 -g, precond, pcg_iters, pcg_tol, step_tol)
+        dx = x_to_tangent(s, clamp_rows(torch.where(
+            torch.isfinite(dx), dx, torch.zeros_like(dx))))
+        if not line_search:
+            s = retract_state(s, dx)
+            continue
+        c0 = reduce(0.5 * torch.sum(packed.r ** 2))
+        costs = torch.stack([
+            cost(retract_state(s, tree_scale(a, dx)), cyl_sigma,
+                 bearing_sigma, reduce) for a in scales])
+        best = torch.argmin(costs)
+        accept = costs[best] < c0
+        alpha = torch.where(accept, scales[best], torch.zeros_like(c0))
+        improved = (c0 - costs[best]) > rel_tol * (c0 + 1e-9)
+        s = retract_state(s, tree_scale(alpha, dx))
+        if not bool(accept & improved):
+            break
+    return s

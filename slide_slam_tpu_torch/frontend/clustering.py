@@ -13,7 +13,11 @@ cap of `max_iters` sweeps, border points to their min core-neighbour label,
 noise and invalid points -1; a cluster's id is its lowest member index.
 `two_stage_cluster_batch` runs the reference's two-layer DBSCAN
 (clustering.two_stage_cluster) on a batch of point sets, on the card in one
-launch.
+launch. The kernel takes up to MAX_POINTS points per set: up to 1024 with
+the adjacency in shared memory, above that with it in a scratch buffer in
+global memory (N^2 / 8 bytes per set: 8 MiB at 8192), the cap set by the
+compacted points that every CTA keeps in shared memory (16 B each, 192 KiB
+at 12288).
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 
 from .. import kernels
 
-MAX_POINTS = 1024
+MAX_POINTS = 12288     # csrc/dbscan.cu kBigMaxPoints
 
 
 def _eps2(eps: float) -> np.float32:
@@ -99,12 +103,19 @@ def _lib() -> ctypes.CDLL:
     if _library is None:
         lib = kernels.load("dbscan")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dbscan_two_stage_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.dbscan_empty_launch.argtypes = [i, i, p]
-        lib.dbscan_auto_cluster.argtypes = []
+        lib.dbscan_two_stage_launch.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                i, p]
+        lib.dbscan_empty_launch.argtypes = [i, i, i, p]
+        lib.dbscan_auto_cluster.argtypes = [i]
+        lib.dbscan_scratch_words.argtypes = [i]
+        lib.dbscan_scratch_words.restype = ctypes.c_longlong
+        lib.dbscan_max_points.argtypes = []
         for fn in (lib.dbscan_two_stage_launch, lib.dbscan_empty_launch,
-                   lib.dbscan_auto_cluster):
+                   lib.dbscan_auto_cluster, lib.dbscan_max_points):
             fn.restype = ctypes.c_int
+        if lib.dbscan_max_points() != MAX_POINTS:
+            raise RuntimeError("csrc/dbscan.cu and clustering.MAX_POINTS "
+                               "disagree on the largest set")
         _library = lib
     return _library
 
@@ -140,17 +151,23 @@ def launch_dbscan(points: torch.Tensor, valid: torch.Tensor,
     """The kernel on C point sets lying on the card: points [C, N, 3] f32,
     valid [C, N] bool, params [C, 4] f32 -> labels [C, N] int32, one launch
     for every set and stage, `cluster` CTAs of a thread-block cluster per set
-    (0: 16 where the card can place a cluster that large, else 8).
+    (0: 16 where the card can place a cluster that large, else 8). Above
+    1024 points per set the kernel works in a scratch buffer allocated here.
     Launches on the current stream without synchronising; each launch adds
     one to `launch_dbscan.launches`."""
     _check(points, valid, params, stages)
     C, n, _ = points.shape
+    lib = _lib()
     labels = torch.empty((C, n), dtype=torch.int32, device=points.device)
+    words = lib.dbscan_scratch_words(n)
+    scratch = (torch.empty(C * words, dtype=torch.int32, device=points.device)
+               if words else None)
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    err = _lib().dbscan_two_stage_launch(
+    err = lib.dbscan_two_stage_launch(
         points.data_ptr(), valid.view(torch.uint8).data_ptr(),
-        params.data_ptr(), labels.data_ptr(), C, n, stages, int(max_iters),
-        int(cluster), stream)
+        params.data_ptr(), labels.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), C, n, stages,
+        int(max_iters), int(cluster), stream)
     if err != 0:
         raise RuntimeError(f"dbscan kernel launch failed: CUDA error {err}")
     launch_dbscan.launches += 1
@@ -160,23 +177,25 @@ def launch_dbscan(points: torch.Tensor, valid: torch.Tensor,
 launch_dbscan.launches = 0
 
 
-def launch_empty(sets: int, cluster: int = 0) -> None:
-    """An empty kernel of the DBSCAN kernel's launch shape (sets clusters of
-    `cluster` CTAs, its shared memory): the launch floor."""
-    err = _lib().dbscan_empty_launch(sets, int(cluster),
+def launch_empty(sets: int, cluster: int = 0, n: int = 1024) -> None:
+    """An empty kernel of the DBSCAN kernel's launch shape at n points per
+    set (sets clusters of `cluster` CTAs, its shared memory): the launch
+    floor."""
+    err = _lib().dbscan_empty_launch(sets, int(n), int(cluster),
                                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
-def auto_cluster_size() -> int:
-    """The CTAs per set that `cluster=0` launches with on this card."""
-    return _lib().dbscan_auto_cluster()
+def auto_cluster_size(n: int = 1024) -> int:
+    """The CTAs per set that `cluster=0` launches with on this card at n
+    points per set."""
+    return _lib().dbscan_auto_cluster(int(n))
 
 
 def dbscan_cuda(points: torch.Tensor, valid: torch.Tensor, eps: float,
                 min_samples: int, max_iters: int = 64) -> torch.Tensor:
-    """The kernel on one point set [N, 3] (N <= 1024), one stage."""
+    """The kernel on one point set [N, 3] (N <= MAX_POINTS), one stage."""
     if not (points.is_cuda and valid.is_cuda):
         raise ValueError("dbscan_cuda takes CUDA tensors")
     params = torch.as_tensor(stage_params(eps, min_samples),

@@ -47,6 +47,19 @@ def _lsq_plane(points, mask):
     return nrm, -(nrm * mu).sum(dim=-1)
 
 
+def fit_plane_lsq(points: torch.Tensor, mask: torch.Tensor,
+                  robust_thresh: float = 0.1):
+    """Masked plane fit per batch row: points [I, G, 3], mask [I, G] ->
+    (normal [I, 3] unit and upward, d [I]) with n.x + d = 0, after one
+    robust re-fit on the points within `robust_thresh` of the first plane
+    (kept only where >= 3 of them remain)."""
+    nrm, d = _lsq_plane(points, mask)
+    dist = torch.abs((points * nrm[:, None, :]).sum(dim=-1) + d[:, None])
+    m2 = mask & (dist < robust_thresh)
+    m2 = torch.where((m2.sum(dim=-1) >= 3)[:, None], m2, mask)
+    return _lsq_plane(points, m2)
+
+
 def ransac_draws(n_rows: int, n_hypotheses: int, seed: int = 0,
                  device="cpu") -> torch.Tensor:
     """[I, H, 3] int64 uniform draws in [0, 2^31 - 1), from a CPU

@@ -13,8 +13,12 @@ either package loads into the other. The port's node also keeps counters
 that neither file has a key for (keyframes since the last mirror refresh and
 since the last full solve, buffered relative sightings, the closure
 bookkeeping); `save_node` writes them to a third file, `runtime.json`, which
-the JAX loader ignores. Without it (a JAX checkpoint) they start afresh, as
-they do in the JAX node.
+the JAX loader ignores. The file carries the key of the snapshot it belongs
+to (the keyframe count and the last keyframe stamp of `node.json`):
+`load_node` applies it only when that key matches, since the JAX `save_node`
+rewrites the other two files and leaves a port's older `runtime.json`
+beside them. Without a matching file (a JAX checkpoint) the counters start
+afresh, as they do in the JAX node.
 """
 from __future__ import annotations
 
@@ -49,8 +53,14 @@ def _packet_to_dict(p):
             for k in p.__dataclass_fields__}
 
 
+def _snapshot_key(key_stamps) -> list:
+    """What ties runtime.json to its node.json: keyframe count, last stamp."""
+    return [len(key_stamps), key_stamps[-1] if key_stamps else None]
+
+
 def _runtime_to_dict(node: "SlamNode") -> dict:
     return {
+        "snapshot": _snapshot_key(node.key_stamps),
         "kf_since_refresh": node._kf_since_refresh,
         "kf_since_full_solve": node._kf_since_full_solve,
         "feasible_relative_meas": [
@@ -160,5 +170,7 @@ def load_node(dirpath: str, cfg, node_cls=None, device="cuda",
     rt_path = os.path.join(dirpath, "runtime.json")
     if os.path.exists(rt_path):
         with open(rt_path) as f:
-            _restore_runtime(node, json.load(f))
+            rt = json.load(f)
+        if rt.get("snapshot") == _snapshot_key(meta["key_stamps"]):
+            _restore_runtime(node, rt)
     return node

@@ -5,7 +5,9 @@ Dense [N, M] distances used by data association:
 * cylinders: min over sample heights {0, 3, 6} m of the distance between the
   two axes evaluated at that height, BIG where labels differ;
 * cuboids: centroid L2, not label gated;
-* ellipsoids: centroid L2, label gated.
+* ellipsoids: centroid L2, label gated;
+* cuboids, the reference's other two forms: the label-gated blend of
+  centroid L2 and scale difference, and the axis-aligned IoU.
 """
 from __future__ import annotations
 
@@ -52,6 +54,35 @@ def centroid_pairwise(ca, cb, label_gate: bool) -> torch.Tensor:
 
 def cuboid_pairwise(a: Cuboids, b: Cuboids) -> torch.Tensor:
     return centroid_pairwise(a, b, label_gate=False)
+
+
+def cuboid_weighted_pairwise(a: Cuboids, b: Cuboids,
+                             dim_weight: float = 0.5) -> torch.Tensor:
+    """[Na, Nb] weightedDistance (cube.cpp:46-58): label-gated blend of
+    centroid L2 and scale-difference norm / 3."""
+    pos = _pair_norm(a.centroid(), b.centroid())
+    sc = _pair_norm(a.scale, b.scale) / 3.0
+    d = (1.0 - dim_weight) * pos + dim_weight * sc
+    ok = (a.valid[:, None] & b.valid[None, :]
+          & (a.label[:, None] == b.label[None, :]))
+    return torch.where(ok, d, torch.full_like(d, BIG))
+
+
+def cuboid_iou_pairwise(a: Cuboids, b: Cuboids) -> torch.Tensor:
+    """[Na, Nb] axis-aligned IoU (cube.cpp:60-82): boxes are centroid +-
+    scale/2, orientation ignored as in the reference; 0 where either entry
+    is invalid."""
+    lo_a, hi_a = a.centroid() - a.scale / 2.0, a.centroid() + a.scale / 2.0
+    lo_b, hi_b = b.centroid() - b.scale / 2.0, b.centroid() + b.scale / 2.0
+    overlap = torch.clamp(
+        torch.minimum(hi_a[:, None, :], hi_b[None, :, :])
+        - torch.maximum(lo_a[:, None, :], lo_b[None, :, :]), min=0.0)
+    inter = torch.prod(overlap, dim=-1)
+    union = (torch.prod(a.scale, dim=-1)[:, None]
+             + torch.prod(b.scale, dim=-1)[None, :] - inter)
+    iou = inter / torch.where(union > 0, union, torch.ones_like(union))
+    ok = a.valid[:, None] & b.valid[None, :]
+    return torch.where(ok, iou, torch.zeros_like(iou))
 
 
 def ellipsoid_pairwise(a: Ellipsoids, b: Ellipsoids) -> torch.Tensor:

@@ -30,3 +30,16 @@ def topk_nearest(centroids: torch.Tensor, valid: torch.Tensor,
         idx = torch.cat([idx, idx.new_zeros(k - k_eff)])
         mask = torch.cat([mask, mask.new_zeros(k - k_eff)])
     return idx.to(torch.int32), mask
+
+
+def radius_mask(centroids: torch.Tensor, valid: torch.Tensor,
+                query: torch.Tensor, radius: float,
+                z_gate: float | None = None) -> torch.Tensor:
+    """Landmarks within `radius` of query (3D distance), with the reference's
+    |z - query_z| < z_gate gate when z_gate is given (getkeyPoseSubmap,
+    cylinderMapManager.cpp:186-211)."""
+    d = torch.linalg.norm(centroids - query[None, :], dim=-1)
+    m = valid & (d <= radius)
+    if z_gate is not None:
+        m = m & (torch.abs(centroids[:, 2] - query[2]) < z_gate)
+    return m

@@ -223,14 +223,12 @@ def dense_clique_inliers(d1: np.ndarray, d2: np.ndarray,
     """Full pipeline on matched point pairs: affinity -> ascent -> rounding.
     Returns indices of the selected (inlier) associations.
 
-    rounding: 'dsd_heu' (top-round(F) entries of u, the reference default)
-    or 'nonzero' (all u > 0). The association count is padded to the JAX
+    rounding: 'dsd_heu' (top-round(F) entries of u, the reference default),
+    'nonzero' (all u > 0) or 'dsd' (the exact densest subgraph of the
+    affinity graph on the support of u, clipper_alternates.dsd_round, on
+    the host). The association count is padded to the JAX
     version's power-of-2 bucket (>= 64) so both ascend the same system;
     padding rows are masked out of the affinity and stay exactly 0."""
-    if rounding == "dsd":
-        raise NotImplementedError(
-            "DSD rounding (clipper_alternates.py) is not ported yet "
-            "(ROADMAP: queue item clipper_alternates)")
     m = len(d1)
     if m == 0:
         return np.zeros((0,), np.int64)
@@ -251,4 +249,7 @@ def dense_clique_inliers(d1: np.ndarray, d2: np.ndarray,
     u, omega = packed[:m], int(packed[-1])
     if rounding == "nonzero":
         return np.flatnonzero(u > 0.0)
+    if rounding == "dsd":
+        from .clipper_alternates import dsd_round
+        return dsd_round(M[:m, :m].cpu().numpy(), u)
     return select_inliers(u, omega)

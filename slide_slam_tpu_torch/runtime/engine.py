@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SlamConfig
-from ..factorgraph import schur
+from ..factorgraph import schur, solver
 from ..factorgraph.graph import GraphState
 from ..geometry import se3
 from ..objects import Cuboids, Cylinders, Ellipsoids
@@ -265,18 +265,54 @@ def _keyframe_body(cfg: SlamConfig, state: GraphState, robot_id: int,
 def _solve_budget(cfg: SlamConfig, state: GraphState, outer_iters, pcg_iters,
                   pcg_tol, line_search: bool = True,
                   step_tol: float = 0.0) -> GraphState:
-    if not cfg.solver.use_schur:
-        raise NotImplementedError(
-            "the unified-variable solver.solve is not ported yet "
-            "(ROADMAP: parallel/ slice); set SolverConfig.use_schur=True")
+    """The Schur solve, or the unified-variable one where
+    SolverConfig.use_schur is False (both with exact f32 sums)."""
     # exact f32 solver math on the card (see schur.py)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return schur.solve(
+    return (schur.solve if cfg.solver.use_schur else solver.solve)(
         state, cyl_sigma=cfg.noise.cylinder, bearing_sigma=cfg.noise.bearing,
         outer_iters=int(outer_iters), pcg_iters=int(pcg_iters),
         pcg_tol=float(pcg_tol), line_search=line_search,
         block_precond=cfg.solver.use_block_jacobi, step_tol=step_tol)
+
+
+def keyframe_step(cfg: SlamConfig, state: GraphState, robot_id: int,
+                  pose_estimate, rel_odom, scan_cyl: Cylinders,
+                  scan_cub: Cuboids, scan_ell: Ellipsoids,
+                  drop_detections: bool, do_solve: bool,
+                  odom_noise: torch.Tensor, cube_noise: torch.Tensor,
+                  enable_solve: bool = True):
+    """DA + insert for one keyframe at `pose_estimate` (prevKeyPose o
+    relOdom, or tf o keyPose for a replay), then, where `do_solve` (a host
+    bool, or a 0-d tensor read once) and `enable_solve`, the incremental
+    solve of the JAX `_keyframe_body`. Returns (state, StepOutput)."""
+    s, out = _keyframe_body(cfg, state, robot_id, pose_estimate, rel_odom,
+                            scan_cyl, scan_cub, scan_ell, drop_detections,
+                            odom_noise, cube_noise)
+    if enable_solve and bool(do_solve):
+        sc = cfg.solver
+        s = _solve_budget(cfg, s, sc.incremental_outer_iterations,
+                          sc.pcg_max_iterations, sc.pcg_tol,
+                          line_search=sc.incremental_line_search,
+                          step_tol=sc.incremental_step_tol)
+        out = out._replace(pose=s.poses[out.slot.long()],
+                           overflow=s.overflow)
+    return s, out
+
+
+def keyframe_step_packed(cfg: SlamConfig, state: GraphState, robot_id: int,
+                         pose_and_rel: torch.Tensor,
+                         packed_scan: torch.Tensor, flags,
+                         odom_noise: torch.Tensor, cube_noise: torch.Tensor,
+                         enable_solve: bool = True):
+    """keyframe_step on one [S, 33] packed scan: pose_and_rel [2, 7]
+    (pose estimate, rel odom), flags [2] (drop_detections, do_solve)."""
+    cyl, cub, ell = unpack_scan(packed_scan)
+    drop, do_solve = (bool(f) for f in flags)
+    return keyframe_step(cfg, state, robot_id, pose_and_rel[0],
+                         pose_and_rel[1], cyl, cub, ell, drop, do_solve,
+                         odom_noise, cube_noise, enable_solve)
 
 
 def keyframe_step_fused(cfg: SlamConfig, state: GraphState, robot_id: int,

@@ -8,9 +8,10 @@ raw odometry / observations / relative measurements through `on_*` methods
 publish the high-frequency drift-compensated pose, then drain the
 measurement queues through the scheduler discipline into the SLAM node.
 
-Queue backend: the pure-python scheduler (runtime/scheduler.py). The JAX
-package's C++ queue core (native.py, `use_native=True`) is not ported yet:
-asking for it raises.
+Queue backend: the pure-python scheduler (runtime/scheduler.py), or with
+`use_native=True` the C++ queue core (native.py, built at first use). As in
+the JAX package, `use_native` reads False after construction where the
+library cannot be built, and the Python queues serve.
 """
 from __future__ import annotations
 
@@ -40,13 +41,18 @@ class InputManager:
         self.cfg = cfg
         self.node = node
         self._odom_counter = 0
+        self.use_native = False
         if use_native:
-            raise NotImplementedError(
-                "the native C++ queue core is not ported yet (ROADMAP: "
-                "queue item 'checkpoint, elastic mission and native queues')")
-        self.odom_queue = deque()
-        self.obs_queue = deque()
-        self.rel_queue = deque()
+            from .. import native
+            if native.available():
+                self._nq = native.NativeQueues(
+                    max_odom=cfg.max_queue_size * 10,
+                    max_obs=cfg.max_queue_size)
+                self.use_native = True
+        if not self.use_native:
+            self.odom_queue = deque()
+            self.obs_queue = deque()
+            self.rel_queue = deque()
         self.latest_odom: Optional[sch.StampedPose] = None
         self.high_freq_log = []
 
@@ -61,21 +67,31 @@ class InputManager:
             return
         if pose[6] < self.cfg.min_robot_altitude:
             return
-        self.odom_queue.append(sch.StampedPose(stamp=stamp, pose=pose))
-        while len(self.odom_queue) > self.cfg.max_queue_size * 10:
-            self.odom_queue.popleft()
+        if self.use_native:
+            self._nq.push_odom(stamp, pose)
+        else:
+            self.odom_queue.append(sch.StampedPose(stamp=stamp, pose=pose))
+            while len(self.odom_queue) > self.cfg.max_queue_size * 10:
+                self.odom_queue.popleft()
 
     def on_observation(self, stamp: float, odom_pose: np.ndarray, obs: dict):
         """Synced semantic measurement (robot.cpp:101-140)."""
-        self.obs_queue.append(sch.Observation(
-            stamped_pose=sch.StampedPose(stamp=stamp, pose=odom_pose),
-            obs=obs))
-        while len(self.obs_queue) > self.cfg.max_queue_size:
-            self.obs_queue.popleft()
+        if self.use_native:
+            self._nq.push_observation(stamp, odom_pose, obs)
+        else:
+            self.obs_queue.append(sch.Observation(
+                stamped_pose=sch.StampedPose(stamp=stamp, pose=odom_pose),
+                obs=obs))
+            while len(self.obs_queue) > self.cfg.max_queue_size:
+                self.obs_queue.popleft()
 
     def on_relative_measurement(self, meas: sch.RelativeMeas):
         """robot.cpp:148-175: observed robots enqueue with only_use_odom."""
-        self.rel_queue.append(meas)
+        if self.use_native:
+            self._nq.push_relative(meas.stamp, meas.odom_pose, meas,
+                                   meas.robot_index, meas.only_use_odom)
+        else:
+            self.rel_queue.append(meas)
 
     # ------------------------------------------------------------------
     def high_freq_pose(self, stamp: float, vio_pose: np.ndarray) -> HighFreqPose:
@@ -98,23 +114,41 @@ class InputManager:
         cfg = self.cfg
         n_done = 0
         while True:
-            kind = sch.pick_next_measurement(
-                self.odom_queue, self.obs_queue, self.rel_queue,
-                self.latest_odom, now, cfg.msg_delay_tolerance,
-                cfg.min_odom_distance)
+            if self.use_native:
+                kind, stamp, pose, payload = self._nq.pick_next(
+                    now, cfg.msg_delay_tolerance, cfg.min_odom_distance)
+            else:
+                kind = sch.pick_next_measurement(
+                    self.odom_queue, self.obs_queue, self.rel_queue,
+                    self.latest_odom, now, cfg.msg_delay_tolerance,
+                    cfg.min_odom_distance)
             if kind == sch.MEAS_NONE:
                 break
             if kind == sch.MEAS_ODOM:
-                sp = self.odom_queue.popleft()
+                if self.use_native:
+                    sp = sch.StampedPose(stamp=stamp, pose=pose)
+                    self._nq.pop(1)
+                else:
+                    sp = self.odom_queue.popleft()
                 self.node.process_keyframe(sp.stamp, sp.pose, {})
                 self._set_latest(sp)
             elif kind == sch.MEAS_OBSERVATION:
-                ob = self.obs_queue.popleft()
+                if self.use_native:
+                    ob = sch.Observation(
+                        stamped_pose=sch.StampedPose(stamp=stamp, pose=pose),
+                        obs=payload or {})
+                    self._nq.pop(2)
+                else:
+                    ob = self.obs_queue.popleft()
                 self.node.process_keyframe(ob.stamped_pose.stamp,
                                            ob.stamped_pose.pose, ob.obs)
                 self._set_latest(ob.stamped_pose)
             elif kind == sch.MEAS_RELATIVE:
-                meas = self.rel_queue.popleft()
+                if self.use_native:
+                    meas = payload
+                    self._nq.pop(3)
+                else:
+                    meas = self.rel_queue.popleft()
                 if not meas.only_use_odom:
                     self.node.add_relative_measurement(meas)
                 # the synced odometry still produces a keyframe
@@ -127,3 +161,5 @@ class InputManager:
 
     def _set_latest(self, sp: sch.StampedPose):
         self.latest_odom = sp
+        if self.use_native:
+            self._nq.set_latest_odom(sp.stamp, sp.pose)

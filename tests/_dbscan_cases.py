@@ -7,7 +7,10 @@ still agree); all points invalid; the (eps, min_samples) pairs of the
 slice's four DBSCAN stages (tree and lightpole, noise and cluster; three
 distinct pairs). For the batched two-stage call: a batch of such sets
 with valid flags that are not a prefix, a 176-point class and the chain, and
-a [2, 1024] batch shaped like a scan's.
+a [2, 1024] batch shaped like a scan's. Above 1024 points (the kernel's
+global-memory path): dense trunks, one dense blob that is a single cluster,
+a chain of the whole set, all points invalid, and the dense scan of the
+KITTI preset's test (tests/test_frontend.py:312-331).
 """
 import numpy as np
 
@@ -125,3 +128,67 @@ def stack(batch):
     return (np.stack([p for _, (p, _), _ in batch]),
             np.stack([v for _, (_, v), _ in batch]),
             np.stack([stage_params(*a) for _, _, a in batch]))
+
+
+BIG_SIZES = (1025, 1500, 4096, 8192)
+
+
+def forest(n, seed=12):
+    """n trunk points as in trees(), one trunk of 60 points for every 60
+    points, in a square that grows with n (~1.2 trunks per 100 m^2)."""
+    rng = np.random.default_rng(seed)
+    k = -(-n // 60)
+    side = 20.0 * np.sqrt(k / 24.0)
+    pts = []
+    for c in rng.uniform(40, 40 + side, (k, 2)):
+        th = rng.uniform(0, 2 * np.pi, 60)
+        r = rng.uniform(0.15, 0.5)
+        pts.append(np.column_stack([c[0] + r * np.cos(th),
+                                    c[1] + r * np.sin(th),
+                                    rng.uniform(0.1, 5.0, 60)]))
+    return pad(np.concatenate(pts)[:n], n)
+
+
+def blob(n, seed=11):
+    """n points in a 1 m cube: with eps 0.5, one cluster of every point."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32), np.ones(n, bool)
+
+
+def big_cases(n):
+    """[(name, (points [n, 3], valid [n]), eps, min_samples)] above 1024."""
+    pts, valid = forest(n)
+    line = np.zeros((n, 3), np.float32)
+    line[:, 0] = 40.0 + 0.5 * np.arange(n)
+    return [("trees", (pts, valid), *SLICE_PARAMS[0]),
+            ("one_cluster", blob(n), 0.5, 5),
+            ("chain_whole_set", (line, np.ones(n, bool)), 0.6, 2),
+            ("scattered_valid", (pts, np.arange(n) % 3 != 0),
+             *SLICE_PARAMS[-1]),
+            ("all_invalid", (pts, np.zeros(n, bool)), *SLICE_PARAMS[0])]
+
+
+def big_batch(n):
+    """The big cases as one batched two-stage call."""
+    return [(name, s, (eps, ms, eps, ms))
+            for name, s, eps, ms in big_cases(n)]
+
+
+def kitti_dense_batch(n=4096, seed=9):
+    """The car, tree and lightpole sets of one dense scan of the kind the
+    JAX package's KITTI preset test builds (tests/test_frontend.py:312-331:
+    a 4000-point box, a 2000-point trunk, no lightpole), each padded to n,
+    with kitti_pipeline_config()'s stage parameters."""
+    from slide_slam_tpu_torch.frontend.pipeline import kitti_pipeline_config
+    from slide_slam_tpu_torch.io.synthetic import (synth_box_points,
+                                                   synth_tree_points)
+    rng = np.random.default_rng(seed)
+    sets = {"car": synth_box_points(rng, [8.0, 2.0, 0.75], [2.0, 1.0, 0.8],
+                                    0.4, 4000),
+            "tree": synth_tree_points(rng, [4.0, -4.0, 0.0], 0.3, n=2000),
+            "lightpole": np.zeros((0, 3))}
+    classes = {c.name: c for c in kitti_pipeline_config().classes}
+    return [(name, pad(np.asarray(pts, np.float32)[:n], n),
+             (classes[name].eps_noise, classes[name].min_samples_noise,
+              classes[name].eps_cluster, classes[name].min_samples_cluster))
+            for name, pts in sets.items()]

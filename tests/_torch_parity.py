@@ -70,3 +70,31 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def solver_fixture(tcfg):
+    """The solver tests' state: 24 keyframes of a small forest with every
+    landmark family through the port's SlamNode on the CPU (numpy dict),
+    poses and cylinder roots perturbed by 5 cm so that a solve has work to
+    do, and the log."""
+    from slide_slam_tpu_torch import convert
+    from slide_slam_tpu_torch.runtime.node import SlamNode
+    rng = np.random.default_rng(0)
+    world = synthetic.make_forest_world(rng, n_trees=40, n_poles=6, n_cars=6,
+                                        extent=20.0)
+    traj = synthetic.lawnmower_trajectory(24, extent=16.0, rows=2, step=1.5)
+    log = synthetic.make_log(world, traj, odom_drift_sigma=0.01,
+                             pos_noise=0.03)
+    node = SlamNode(tcfg, robot_id=0, device="cpu")
+    for kf in log.keyframes:
+        node.process_keyframe(kf.stamp, kf.odom_pose, vars(kf))
+    assert sum(node.overflow_report().values()) == 0
+    assert min(node.landmark_counts().values()) > 0
+    state = convert.state_to_numpy(node.state)
+    prng = np.random.default_rng(3)
+    poses = state["poses"] + prng.normal(0, 0.05, state["poses"].shape)
+    poses[:, :4] /= np.linalg.norm(poses[:, :4], axis=1, keepdims=True)
+    state["poses"] = poses.astype(np.float32)
+    state["cyl_root"] = (state["cyl_root"] + prng.normal(
+        0, 0.05, state["cyl_root"].shape)).astype(np.float32)
+    return state, log

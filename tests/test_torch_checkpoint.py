@@ -220,3 +220,46 @@ def test_restore_keeps_the_runtime_counters(tmp_path, log):
     assert _port_mirrors(restored) == _port_mirrors(node)
     # the afresh node's full solve comes a keyframe later
     assert fresh._kf_since_full_solve != node._kf_since_full_solve
+
+
+def test_stale_runtime_json_is_ignored(tmp_path, log):
+    """A port save, then a JAX save later into the same directory (which
+    rewrites graph.npz and node.json and leaves the port's runtime.json),
+    then a port load: the result equals a port load of the JAX checkpoint
+    alone, since runtime.json's snapshot key no longer matches node.json."""
+    jcfg, cfg = _cfgs()
+    cfg = cfg.replace(solver=dataclasses.replace(cfg.solver,
+                                                 full_solve_every=4))
+    node = SlamNode(cfg, robot_id=0, device="cpu")
+    _feed(node, log, 0, N_SAVE - 4)
+    node.add_relative_measurement(RelativeMeas(
+        stamp=5.0, relative_pose=np.array([1, 0, 0, 0, 1, 2, 3], np.float32),
+        robot_index=1, odom_pose=np.eye(1, 7, dtype=np.float32)[0]))
+    node.process_relative_factors()
+    shared, alone = str(tmp_path / "shared"), str(tmp_path / "alone")
+    tckpt.save_node(shared, node)
+    with open(os.path.join(shared, "runtime.json")) as f:
+        assert json.load(f)["snapshot"] == [len(node.key_stamps),
+                                            node.key_stamps[-1]]
+    jnode = JSlamNode(jcfg, robot_id=0)
+    _feed(jnode, log, 0, N_SAVE)
+    jckpt.save_node(shared, jnode)
+    jckpt.save_node(alone, jnode)
+    assert sorted(os.listdir(shared)) == ["graph.npz", "node.json",
+                                          "runtime.json"]
+    assert sorted(os.listdir(alone)) == ["graph.npz", "node.json"]
+    got = tckpt.load_node(shared, cfg, device="cpu")
+    want = tckpt.load_node(alone, cfg, device="cpu")
+    _assert_state_equal(got.state, want.state)
+    _assert_host_equal(got, want)
+    assert _port_mirrors(got) == _port_mirrors(want)
+    assert (got._kf_since_full_solve, got.feasible_relative_meas) == (0, [])
+    assert got.last_intra_attempt_pose == want.last_intra_attempt_pose
+    for n in (got, want):
+        _feed(n, log, N_SAVE, N_SAVE + 3)
+    np.testing.assert_array_equal(got.optimized_trajectory(),
+                                  want.optimized_trajectory())
+    # the port's own save is still restored with its counters
+    tckpt.save_node(shared, node)
+    again = tckpt.load_node(shared, cfg, device="cpu")
+    assert _port_mirrors(again) == _port_mirrors(node)

@@ -17,7 +17,9 @@ import torch
 
 from slide_slam_tpu_torch.frontend import clustering
 
-from _dbscan_cases import CASES, slice_batch, stack, trees, two_stage_batch
+from _dbscan_cases import (BIG_SIZES, CASES, big_batch, big_cases,
+                           kitti_dense_batch, slice_batch, stack, trees,
+                           two_stage_batch)
 
 
 def _card():
@@ -57,9 +59,10 @@ def test_two_stage_cluster_card_equals_cpu():
 @pytest.mark.cuda
 def test_dbscan_kernel_refuses_what_it_cannot_take():
     _card()
+    n = clustering.MAX_POINTS + 1
     with pytest.raises(ValueError):
-        clustering.dbscan(torch.zeros(1025, 3, device="cuda"),
-                          torch.ones(1025, dtype=torch.bool, device="cuda"),
+        clustering.dbscan(torch.zeros(n, 3, device="cuda"),
+                          torch.ones(n, dtype=torch.bool, device="cuda"),
                           0.5, 5)
     with pytest.raises(ValueError):
         clustering.dbscan(torch.zeros(8, 2, device="cuda"),
@@ -69,6 +72,56 @@ def test_dbscan_kernel_refuses_what_it_cannot_take():
         clustering.dbscan(torch.zeros(8, 3, device="cuda"),
                           torch.ones(7, dtype=torch.bool, device="cuda"),
                           0.5, 5)
+
+
+BIG = [(n, i) for n in BIG_SIZES for i in range(len(big_cases(n)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,i", BIG, ids=[f"{n}-{big_cases(n)[i][0]}"
+                                         for n, i in BIG])
+def test_dbscan_kernel_above_1024_equals_plain(n, i):
+    """The global-memory path (N > 1024): one launch, labels exactly equal,
+    with no valid point and with every point in one cluster too."""
+    _card()
+    _, (pts, valid), eps, ms = big_cases(n)[i]
+    p = torch.as_tensor(pts, device="cuda")
+    v = torch.as_tensor(valid, device="cuda")
+    before = clustering.launch_dbscan.launches
+    got = clustering.dbscan(p, v, eps, ms)
+    assert clustering.launch_dbscan.launches == before + 1
+    ref = clustering.dbscan_reference(p, v, eps, ms)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", BIG_SIZES)
+def test_batched_kernel_above_1024_equals_plain(n):
+    _card()
+    pts, valid, params = stack(big_batch(n))
+    args = [torch.as_tensor(a, device="cuda") for a in (pts, valid, params)]
+    before = clustering.launch_dbscan.launches
+    got = clustering.two_stage_cluster_batch(*args)
+    assert clustering.launch_dbscan.launches == before + 1
+    ref = clustering.two_stage_cluster_reference(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 4, 8])
+def test_kitti_dense_scan_equals_plain(cluster):
+    """The KITTI preset's dense scan at max_points_per_class = 4096, C = 3,
+    both stages in one launch, at several cluster sizes."""
+    _card()
+    pts, valid, params = stack(kitti_dense_batch())
+    args = [torch.as_tensor(a, device="cuda") for a in (pts, valid, params)]
+    got = clustering.launch_dbscan(*args, cluster=cluster)
+    assert clustering.auto_cluster_size(4096) in (8, 16)
+    ref = clustering.two_stage_cluster_reference(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
 
 
 BATCHES = {"cases": two_stage_batch(), "slice_2x1024": slice_batch()}
@@ -272,3 +325,97 @@ def test_checkpoint_card_to_cpu_and_back(tmp_path):
         back.landmark_counts()
     np.testing.assert_allclose(back.optimized_trajectory(),
                                node.optimized_trajectory(), atol=1e-3)
+
+
+def _solver_state(device):
+    """The sharded solves' test state (tests/test_torch_sharded.py): 25
+    keyframes of a small forest through the port's node on the CPU, moved
+    to `device` (numpy and the port only)."""
+    from slide_slam_tpu_torch import config, convert
+    from slide_slam_tpu_torch.io import synthetic
+    from slide_slam_tpu_torch.runtime.node import SlamNode
+    cfg = config.SlamConfig(number_of_robots=2, capacity=config.CapacityConfig(
+        max_poses_per_robot=64, max_cylinders=128, max_cuboids=64,
+        max_points=64, max_scan_objects=32, max_cylinder_factors=1024,
+        max_cuboid_factors=512, max_point_factors=512,
+        max_between_factors=32))
+    rng = np.random.default_rng(0)
+    world = synthetic.make_forest_world(rng, n_trees=30, n_poles=6, n_cars=6,
+                                        extent=20.0)
+    traj = synthetic.lawnmower_trajectory(25, extent=16.0, rows=2, step=1.5)
+    log = synthetic.make_log(world, traj, odom_drift_sigma=0.02, seed=1)
+    node = SlamNode(cfg, robot_id=0, device="cpu")
+    for kf in log.keyframes:
+        node.process_keyframe(kf.stamp, kf.odom_pose, vars(kf))
+    return cfg, convert.state_from_numpy(convert.state_to_numpy(node.state),
+                                         device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_precond", [False, True])
+def test_unified_solve_card_equals_cpu(block_precond):
+    """The unified-variable solve (engine.solve_full, use_schur=False) on
+    the card against the CPU from the same state: poses within 1e-3 m
+    (quaternions up to sign; the card's atomic index_add_ sums in another
+    order), cost within 1e-3 relative."""
+    _card()
+    import dataclasses
+    from slide_slam_tpu_torch.factorgraph import solver
+    from slide_slam_tpu_torch.runtime import engine
+    cfg, state = _solver_state("cpu")
+    cfg = cfg.replace(solver=dataclasses.replace(
+        cfg.solver, use_schur=False, use_block_jacobi=block_precond))
+    want = engine.solve_full(cfg, state)
+    got = engine.solve_full(cfg, _to(state, "cuda"))
+    assert got.poses.is_cuda
+    assert _pose_gap(got.poses.cpu(), want.poses) <= 1e-3
+    sig = (cfg.noise.cylinder, cfg.noise.bearing)
+    c_cpu = float(solver.cost(want, *sig))
+    assert abs(float(solver.cost(got, *sig)) - c_cpu) <= 1e-3 * c_cpu
+
+
+def _to(state, device):
+    return type(state)(*(f.to(device) for f in state))
+
+
+def _pose_gap(a, b):
+    """Largest gap of two [N, 7] pose arrays: translations, and quaternions
+    after aligning their signs (q and -q are one rotation)."""
+    a, b = np.asarray(a), np.asarray(b)
+    sign = np.where((a[:, :4] * b[:, :4]).sum(1, keepdims=True) < 0, -1, 1)
+    return max(np.abs(a[:, 4:] - b[:, 4:]).max(),
+               np.abs(sign * a[:, :4] - b[:, :4]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["factor", "landmark"])
+def test_sharded_solve_on_card_equals_local(kind):
+    """distributed_solve (factor-sharded unified) and landmark_sharded_solve
+    (landmark-sharded Schur) with 4 shards in lockstep on the card against
+    the local solve on the card, from chip_smoke's check:sharded_solves
+    state (the sharded tests' graph, its poses kicked 5 cm off, so the
+    solve moves them > 10 cm): poses within 1e-2 m (tests/
+    test_distributed_ba.py's bound), cost within 1e-3 relative, every
+    integer field identical."""
+    _card()
+    import dataclasses
+    import chip_smoke
+    from slide_slam_tpu_torch.factorgraph import solver
+    from slide_slam_tpu_torch.parallel import distributed_ba, landmark_sharded
+    from slide_slam_tpu_torch.runtime import engine
+    cfg, state = chip_smoke.sharded_check_state("cuda")
+    cfg = cfg.replace(solver=dataclasses.replace(
+        cfg.solver, use_schur=kind == "landmark"))
+    fn = (distributed_ba.distributed_solve if kind == "factor"
+          else landmark_sharded.landmark_sharded_solve)
+    local = engine.solve_full(cfg, state)
+    sharded = fn(state, cfg, n_shards=4)
+    assert sharded.poses.is_cuda
+    assert _pose_gap(state.poses.cpu(), local.poses.cpu()) > 0.1
+    assert _pose_gap(sharded.poses.cpu(), local.poses.cpu()) <= 1e-2
+    sig = (cfg.noise.cylinder, cfg.noise.bearing)
+    c_local = float(solver.cost(local, *sig))
+    assert abs(float(solver.cost(sharded, *sig)) - c_local) <= 1e-3 * c_local
+    for f, a in zip(sharded._fields, sharded):
+        if a.dtype in (torch.int32, torch.bool):
+            assert torch.equal(a, getattr(local, f)), f

@@ -19,7 +19,8 @@ from slide_slam_tpu.frontend.clustering_pallas import dbscan_pallas
 from slide_slam_tpu_torch.frontend import clustering as tclust
 from slide_slam_tpu_torch.frontend.pipeline import forest_classes
 
-from _dbscan_cases import (CASES, SLICE_PARAMS, chain, stack, trees,
+from _dbscan_cases import (CASES, SLICE_PARAMS, big_batch, chain,
+                           kitti_dense_batch, stack, trees,
                            two_stage_batch)
 
 
@@ -111,3 +112,21 @@ def test_batch_cases_are_what_they_claim(batch_labels):
         >= set(SLICE_PARAMS)
     for c, name in enumerate(names):                 # every set has clusters
         assert (batch_labels[c] >= 0).any(), name
+
+
+@pytest.mark.parametrize("n", [1500, 4096])
+def test_batched_plain_above_1024_equals_jax_two_stage(n):
+    """Above 1024 points per set (the kernel's global-memory path): the
+    plain twin's batched call against the JAX two_stage_cluster, set by
+    set, label for label; at 1500 the big cases (dense trunks, one blob
+    that is a single cluster, a chain of the whole set, scattered valid
+    flags, no valid point), at 4096 the KITTI preset's dense scan."""
+    batch = big_batch(n) if n == 1500 else kitti_dense_batch(n)
+    pts, valid, params = stack(batch)
+    got = tclust.two_stage_cluster_batch(torch.as_tensor(pts),
+                                         torch.as_tensor(valid),
+                                         torch.as_tensor(params)).numpy()
+    for c, (name, (p, v), args) in enumerate(batch):
+        ref = jclust.two_stage_cluster(jnp.asarray(p), jnp.asarray(v), *args)
+        np.testing.assert_array_equal(got[c], np.asarray(ref), err_msg=name)
+    assert (got >= 0).any(axis=1).sum() >= 2

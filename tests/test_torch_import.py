@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: with `jax`, `flax`, `slide_slam_tpu`,
 `sklearn` and `cv2` (not dependencies of the port) made unimportable,
-`slide_slam_tpu_torch`, every one of its modules, chip_smoke.py and the
-indoor team's scene (indoor_rgbd_team.py) import in a fresh interpreter,
-and no CUDA kernel is built on import."""
+`slide_slam_tpu_torch`, every one of its modules (parallel/ and
+torch.distributed among them), chip_smoke.py and the indoor team's scene
+(indoor_rgbd_team.py) import in a fresh interpreter, and neither a CUDA
+kernel nor the native runtime core is built on import."""
 import os
 import subprocess
 import sys
@@ -21,8 +22,13 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 import indoor_rgbd_team
-from slide_slam_tpu_torch import kernels
+from slide_slam_tpu_torch import kernels, native
 assert not kernels._loaded, kernels._loaded
+assert native._lib is None and not native._tried
+for m in ("native", "parallel.multirobot", "parallel.distributed_ba",
+          "parallel.landmark_sharded", "parallel.multiprocess",
+          "place_recognition.clipper_alternates"):
+    assert "slide_slam_tpu_torch." + m in mods, m
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "slide_slam_tpu",
                                     "sklearn", "cv2")
@@ -37,7 +43,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", GUARD], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 53, out.stdout
+    assert int(out.stdout.split()[-1]) >= 61, out.stdout
 
 
 def test_chip_smoke_refuses_without_a_card():

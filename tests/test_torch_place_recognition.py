@@ -339,10 +339,15 @@ def test_clipper_matches_jax(seed, n_in, n_out):
 
 
 def test_clipper_dsd_rounding_raises():
+    """DSD rounding no longer raises (clipper_alternates is ported): the
+    inlier set equals the JAX package's, identical."""
     d1, d2 = _associations(0, 5, 3)
-    with pytest.raises(NotImplementedError, match="clipper_alternates"):
-        tcl.dense_clique_inliers(d1, d2, tcl.ClipperParams(), device="cpu",
-                                 rounding="dsd")
+    got = tcl.dense_clique_inliers(d1, d2, tcl.ClipperParams(), device="cpu",
+                                   rounding="dsd")
+    want = jcl.dense_clique_inliers(d1, d2, jcl.ClipperParams(),
+                                    rounding="dsd")
+    np.testing.assert_array_equal(got, want)
+    assert len(got) >= 3
 
 
 # ---------------------------------------------------------------------------

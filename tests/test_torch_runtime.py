@@ -203,7 +203,12 @@ def test_high_freq_pose_and_odom_filter_match_jax():
 
 
 def test_native_queues_raise():
+    """use_native=True no longer raises (native.py is ported): as in the JAX
+    package, the input manager takes the C++ queues where the library
+    builds, and the Python queues otherwise."""
+    from slide_slam_tpu_torch import native
     cfg = _im_cfg(tconfig)
     node = TNode(cfg, robot_id=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="native"):
-        TIM(cfg, node, use_native=True)
+    im = TIM(cfg, node, use_native=True)
+    assert im.use_native == native.available()
+    assert not TIM(cfg, node).use_native
