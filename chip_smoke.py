@@ -38,11 +38,23 @@ package. Phases, in this order, each of which fails the run:
                     LidarFrontend -> SlamNode.process_keyframe, with the
                     launch counts reset just before and read just after:
                     one DBSCAN launch per keyframe with a clustered class;
+   check:reference_oracle  the card's solves against the port's f64
+                    Levenberg-Marquardt oracle (reference_solver, numpy /
+                    scipy on the host): tests/test_solver_vs_reference.py's
+                    world and config through SlamNode on the card with that
+                    test's bounds at keyframes 20, 40, 60 (RMS gap < 8 cm,
+                    max < 15 cm), the optimum the same from odometry (1e-4
+                    m, cost 1e-6), solve_full (Schur and unified) within
+                    5 cm after a kf 5 <-> 55 closure; then the final state
+                    of slice:raw_lidar_solo (150 keyframes, 256 pose slots,
+                    built through the DBSCAN kernel): RMS gap <= 1.25 x the
+                    JAX package's on its own state, the costs, the
+                    optimum's ATE, the oracle's seconds and iterations;
 5. card_vs_cpu      its first 8 keyframes again with device="cpu": match
                     indices identical, poses within 1e-3;
    slice:unified_solo  the same mission with SolverConfig(use_schur=False),
                     the unified-variable solve, for the keyframes that fit
-                    UNIFIED_BUDGET_S (all 150 so far): one DBSCAN launch
+                    UNIFIED_BUDGET_S (30 s): one DBSCAN launch
                     per keyframe, overflow 0, ATE <= 1.25 x the JAX
                     package's unified run over the same keyframes;
 6. slice:urban_lidar_solo  the same world with 15 cars, the outdoor classes
@@ -69,8 +81,8 @@ package. Phases, in this order, each of which fails the run:
                     one DBSCAN launch (chair and table) per scan, centroid
                     measurements equal, three objects;
 10. slice:multi_robot_mission  the decentralized mission of the JAX package's
-                    bench.py:222-264 at full width (3 robots x 150
-                    keyframes, 110 trees, mission_capacity(150), input
+                    bench.py:222-264 at full width (3 robots x 100 of its
+                    150 keyframes, 110 trees, mission_capacity(150), input
                     manager, async worker pool, intra-LC, SlideGraph/CLIPPER
                     merges, relative factors) through MultiRobotMission.run
                     on the card, after one untimed SlideMatch/CLIPPER
@@ -96,6 +108,13 @@ package. Phases, in this order, each of which fails the run:
                     3 cm, replayed peer chains within 4 cm, per-robot ATE
                     within 1 cm (the card's run-to-run spread: see
                     CARD_VS_CPU_OWN_TOL);
+    slice:bag_mission  recorded bags into a mission through the CLI:
+                    gen-logs (defaults, 2 robots x 60 keyframes), each log
+                    as a SemanticMeasSyncOdom bag, convert-bag and --list,
+                    run --intra-lc --sync --device cuda, eval per robot:
+                    converted arrays bit-equal to the logs, summary.json
+                    equal to the JAX CLI's, ATE <= 1.25 x the JAX run's,
+                    overflow 0;
     slice:spmd_team  the decentralized team step
                     (parallel/multirobot.build_spmd_step) over the
                     mission's 3 robots for 50 steps, robot 0 given robot
@@ -166,11 +185,14 @@ CARD_VS_CPU_KEYFRAMES = 8
 # keyframe 40. Keyframes 9-40 are held to 4 cm, the first 8 to POSE_TOL.
 URBAN_CARD_VS_CPU_KEYFRAMES = 40
 URBAN_LATE_POSE_TOL = 4e-2
-MISSION_KEYFRAMES = 150     # per robot, 3 robots
-# scripts/jax_mission_reference.py, the JAX package in the async runtime on
-# the CPU (PERF.md): every robot merges with both peers, mean ATE 0.154663 m
+# per robot, 3 robots: 100 of bench.py's 150 keep the script under 900 s
+# on the slowest card hosts seen (PERF.md section 4)
+MISSION_KEYFRAMES = 100
+# scripts/jax_mission_reference.py --keyframes 100 --mode async, the JAX
+# package in the async runtime on the CPU (PERF.md): every robot merges
+# with both peers, 2/2 intra closures on robot 0, mean ATE 0.091741 m
 MISSION_MERGED_PAIRS = [[0, 1], [0, 2], [1, 0], [1, 2], [2, 0], [2, 1]]
-MISSION_ATE_BOUND_M = 0.1933  # 1.25 x 0.154663 m
+MISSION_ATE_BOUND_M = 0.114676  # 1.25 x 0.091741 m
 # card vs CPU on the small mission. The CPU parity test
 # (tests/test_torch_mission.py) holds the port to the JAX package within
 # 1 cm on own chains and 2.5 cm on replayed peer chains; the card cannot be
@@ -1636,7 +1658,7 @@ def phase_kernel_kitti():
 # slice:unified_solo: the forest mission with SolverConfig(use_schur=False)
 # for as many keyframes (a multiple of UNIFIED_KF_STEP, at least 40, so
 # that the periodic full solve of keyframe 32 runs) as fit UNIFIED_BUDGET_S
-UNIFIED_BUDGET_S = 75.0
+UNIFIED_BUDGET_S = 30.0
 UNIFIED_MIN_KEYFRAMES = 40
 UNIFIED_KF_STEP = 10
 # the JAX package's unified run of the same mission on the CPU
@@ -1911,6 +1933,38 @@ def pose_gap(a, b):
                float((sign * qa - qb).abs().max()))
 
 
+def rotation_gap_deg(qa, qb):
+    """Angles of qa qb^-1 in degrees, [N] ([N, 4] wxyz, numpy); |w| makes
+    q and -q one rotation."""
+    w = np.abs(np.sum(qa * qb, axis=-1) / (np.linalg.norm(qa, axis=-1)
+                                          * np.linalg.norm(qb, axis=-1)))
+    return np.degrees(2.0 * np.arccos(np.clip(w, 0.0, 1.0)))
+
+
+def oracle_gaps(est, conv, info, seconds, truth=None):
+    """An engine's pose chain est [n, 7] (slots 0..n-1) against the f64
+    optimum `conv` of the same factors (reference_solver.solve_reference,
+    slot layout, with its `info`): RMS and max position gap, largest
+    rotation gap, the costs at the estimate and at the optimum, and with
+    `truth` [>= n, 7] both ATEs."""
+    n = len(est)
+    gap = np.linalg.norm(conv[:n, 4:7] - est[:, 4:7], axis=1)
+    out = dict(keyframes=n, rms_gap_m=float(np.sqrt(np.mean(gap ** 2))),
+               max_gap_m=float(gap.max()),
+               max_rotation_gap_deg=float(rotation_gap_deg(
+                   conv[:n, :4], est[:, :4]).max()),
+               cost_at_estimate=float(info["initial_cost"]),
+               cost_optimum=float(info["final_cost"]),
+               iters=int(info["iters"]), seconds=float(seconds))
+    if truth is not None:
+        from slide_slam_tpu_torch.io import synthetic
+        out["ate_estimate_m"] = synthetic.ate_rmse(est, truth[:n],
+                                                   align=False)
+        out["ate_optimum_m"] = synthetic.ate_rmse(conv[:n], truth[:n],
+                                                  align=False)
+    return out
+
+
 def phase_sharded_solves(device="cuda"):
     """distributed_solve (factor-sharded unified solve) and
     landmark_sharded_solve (landmark-sharded Schur solve) with SHARDS
@@ -2056,6 +2110,274 @@ def phase_native_dsd(maps):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# check:reference_oracle: the card's solves against the port's f64 oracle
+# (factorgraph/reference_solver.py, numpy/scipy on the host)
+# ---------------------------------------------------------------------------
+ORACLE_SNAPSHOTS = (20, 40, 60)   # tests/test_solver_vs_reference.py:36-56
+ORACLE_ATE_GAP_M = 0.08           # its bounds: :80-98
+ORACLE_MAX_GAP_M = 0.15
+ORACLE_INIT_GAP_M = 1e-4          # :63-77
+ORACLE_COST_RTOL = 1e-6
+ORACLE_CLOSURE_GAP_M = 0.05       # :118-140, after the kf 5 <-> 55 closure
+ORACLE_GAP_RATIO = 1.25
+# the JAX package's RMS position gap to its own f64 optimum on its final
+# 150-keyframe forest state (scripts/jax_raw_lidar_reference.py --oracle,
+# on a CPU: max gap 0.3388 m, costs 19.94565 / 19.94507, the optimum's
+# ATE 6.1748 m against the engine's 6.0419 m, 29 LM iterations in 8.3 s)
+JAX_FOREST_ORACLE_RMS_GAP_M = 0.15294395067202773
+
+
+def oracle_world(synthetic):
+    """The trajectory and log of tests/test_solver_vs_reference.py's fixture
+    (:36-56): 60 trees, 10 poles, 8 cars, extent 30, 60 lawnmower
+    keyframes, seed 0."""
+    rng = np.random.default_rng(0)
+    world = synthetic.make_forest_world(rng, n_trees=60, n_poles=10,
+                                        n_cars=8, extent=30.0)
+    traj = synthetic.lawnmower_trajectory(60, extent=25.0, rows=3, step=1.5)
+    log = synthetic.make_log(world, traj, odom_drift_sigma=0.01,
+                             pos_noise=0.03, dropout=0.1)
+    return traj, log
+
+
+def oracle_config(config):
+    """That test's _cfg() (:22-33): capacities with zero drops."""
+    return config.SlamConfig(
+        number_of_robots=1,
+        capacity=config.CapacityConfig(
+            max_poses_per_robot=128, max_cylinders=256, max_cuboids=64,
+            max_points=64, max_scan_objects=32, max_cylinder_factors=2048,
+            max_cuboid_factors=512, max_point_factors=1024,
+            max_between_factors=16))
+
+
+def phase_reference_oracle(solo_node, solo_traj, device="cuda"):
+    """The card's solves held against the f64 Levenberg-Marquardt optimum of
+    the same factors (reference_solver.solve_reference on a host copy).
+    (a) tests/test_solver_vs_reference.py's world and config through the
+    port's SlamNode on the card, with that test's bounds at keyframes 20,
+    40 and 60, the oracle's optimum the same from odometry, and the card's
+    solve_full (Schur and unified) after a kf 5 <-> 55 closure; (b) the
+    final state of slice:raw_lidar_solo: RMS gap <= 1.25 x the JAX
+    package's on its own state. No DBSCAN launch (measurement logs and the
+    solo run's graph)."""
+    import dataclasses
+    import torch
+    from slide_slam_tpu_torch import config, convert
+    from slide_slam_tpu_torch.factorgraph import reference_solver as rs
+    from slide_slam_tpu_torch.frontend import clustering
+    from slide_slam_tpu_torch.geometry import se3np
+    from slide_slam_tpu_torch.io import synthetic
+    from slide_slam_tpu_torch.runtime import engine
+    from slide_slam_tpu_torch.runtime.node import SlamNode
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cfg = oracle_config(config)
+
+    def oracle(state, est, truth, noise=cfg.noise, **kw):
+        """The f64 optimum under the noise of the config that built the
+        graph (the forest's cylinder sigma is 10, the default's 400)."""
+        t0 = time.perf_counter()
+        conv, info = rs.solve_reference(state, cyl_sigma=noise.cylinder,
+                                        bearing_sigma=noise.bearing, **kw)
+        return conv, oracle_gaps(est, conv, info, time.perf_counter() - t0,
+                                 truth)
+
+    traj, log = oracle_world(synthetic)
+    clustering.launch_dbscan.launches = 0
+    node = SlamNode(cfg, robot_id=0, device=device)
+    snaps = {}
+    t0 = time.perf_counter()
+    for i, kf in enumerate(log.keyframes):
+        node.process_keyframe(kf.stamp, kf.odom_pose, vars(kf))
+        if i + 1 in ORACLE_SNAPSHOTS:
+            snaps[i + 1] = convert.state_to_numpy(node.state)
+    out = {"small": {"engine_s": time.perf_counter() - t0,
+                     "overflow": node.overflow_report()}}
+    check(sum(out["small"]["overflow"].values()) == 0,
+          f"overflow on the oracle's graph: {out['small']['overflow']}")
+    for k, snap in snaps.items():
+        n = int(snap["pose_count"][0])
+        conv, g = oracle(snap, snap["poses"][:n], traj)
+        out["small"][f"kf{k}"] = g
+        check(g["rms_gap_m"] < ORACLE_ATE_GAP_M and
+              g["max_gap_m"] < ORACLE_MAX_GAP_M,
+              f"keyframe {k}: the card {g['rms_gap_m']} m RMS / "
+              f"{g['max_gap_m']} m max from the f64 optimum")
+    # the last snapshot's optimum (conv, g) again from dead reckoning
+    last = snaps[ORACLE_SNAPSHOTS[-1]]
+    conv_odom, g_odom = oracle(last, last["poses"][:n], traj,
+                               from_odometry=True)
+    init_gap = float(np.linalg.norm(conv[:n, 4:7] - conv_odom[:n, 4:7],
+                                    axis=1).max())
+    out["small"]["from_odometry"] = dict(g_odom, init_gap_m=init_gap)
+    check(init_gap < ORACLE_INIT_GAP_M, f"the optimum from odometry is "
+          f"{init_gap} m from the one from the card's estimate")
+    check(abs(g_odom["cost_optimum"] - g["cost_optimum"])
+          <= ORACLE_COST_RTOL * g["cost_optimum"],
+          f"optimum cost {g_odom['cost_optimum']} from odometry against "
+          f"{g['cost_optimum']}")
+    check(g_odom["cost_at_estimate"] > 5 * g_odom["cost_optimum"],
+          "LM did not descend from the odometry start")
+
+    closed = engine.add_between_factor(
+        cfg, convert.state_from_numpy(last, device=device), 5, 55,
+        torch.as_tensor(se3np.between(traj[5], traj[55]), device=device),
+        torch.full((6,), 0.01, dtype=torch.float32, device=device))
+    for name, schur in (("closure_schur", True), ("closure_unified", False)):
+        c = cfg.replace(solver=dataclasses.replace(cfg.solver,
+                                                   use_schur=schur))
+        sync()
+        t0 = time.perf_counter()
+        solved = engine.solve_full(c, closed)
+        sync()
+        card_s = time.perf_counter() - t0
+        snap = convert.state_to_numpy(solved)
+        _, g = oracle(snap, snap["poses"][:n], traj)
+        out["small"][name] = dict(g, card_solve_s=card_s)
+        check(g["rms_gap_m"] < ORACLE_CLOSURE_GAP_M,
+              f"{name}: the card's solve_full {g['rms_gap_m']} m RMS from "
+              "the optimum after the closure")
+
+    # (b) the full-width forest graph built through the DBSCAN kernel
+    _, g = oracle(solo_node.state, solo_node.optimized_trajectory(),
+                  solo_traj, solo_node.cfg.noise)
+    g["pose_slots"] = int(solo_node.state.poses.shape[0])
+    g["cylinder_factors"] = int(solo_node.state.cf_count)
+    g["jax_rms_gap_m"] = JAX_FOREST_ORACLE_RMS_GAP_M
+    out["forest"] = g
+    out["dbscan_launches"] = clustering.launch_dbscan.launches
+    print("[check:reference_oracle] " + json.dumps(out))
+    check(g["rms_gap_m"] <= ORACLE_GAP_RATIO * JAX_FOREST_ORACLE_RMS_GAP_M,
+          f"forest: the card {g['rms_gap_m']} m RMS from the f64 optimum, "
+          f"above {ORACLE_GAP_RATIO} x the JAX package's "
+          f"{JAX_FOREST_ORACLE_RMS_GAP_M} m")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# slice:bag_mission: recorded bags -> convert-bag -> run -> eval, through
+# the CLI's own entry points
+# ---------------------------------------------------------------------------
+BAG_ROBOTS = 2                    # of gen-logs' 3
+BAG_KEYFRAMES = 60                # of gen-logs' 120
+# the JAX CLI on the same pipeline in the synchronous runtime
+# (scripts/jax_bag_mission_reference.py, on a CPU): summary.json and
+# eval's ATE per robot
+JAX_BAG_SUMMARY = {
+    str(r): {"keyframes": 60,
+             "landmarks": {"cylinders": cyl, "cuboids": 9, "points": pts},
+             "inter_lc": [3, 1], "intra_lc": [0, 0], "known_tfs": [1 - r]}
+    for r, cyl, pts in ((0, 82, 7), (1, 84, 6))}
+JAX_BAG_ATE_M = {"0": 0.4504, "1": 0.411}
+BAG_ATE_RATIO = 1.25
+
+
+def bag_mission(root, run_args=(), package="slide_slam_tpu_torch"):
+    """gen-logs at its defaults for BAG_ROBOTS x BAG_KEYFRAMES; each log
+    written as a SemanticMeasSyncOdom bag (io.rosbag.robot_log_to_bag, the
+    "recorded" bags); `convert-bag` and `--list` on each; `run --intra-lc`
+    on the converted logs, plus `run_args`; `eval` of each robot's
+    trajectory against the gen-logs truth. Every converted array equals
+    the source's bit for bit (true_pose: a bag carries no truth, the reader
+    sets the odometry). `package` names the package whose CLI runs
+    (scripts/jax_bag_mission_reference.py passes the JAX package's)."""
+    import contextlib
+    import importlib
+    import io
+    cli = importlib.import_module(package + ".cli")
+    logs = importlib.import_module(package + ".io.logs")
+    rosbag = importlib.import_module(package + ".io.rosbag")
+
+    def call(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return buf.getvalue()
+
+    data, bags, conv, res = (os.path.join(root, d) for d in
+                             ("logs", "bags", "converted", "results"))
+    os.makedirs(bags)
+    os.makedirs(conv)
+    call(["gen-logs", "--out", data, "--robots", str(BAG_ROBOTS),
+          "--keyframes", str(BAG_KEYFRAMES)])
+    out = dict(convert_s=[], bag_bytes=[])
+    for r in range(BAG_ROBOTS):
+        src = os.path.join(data, f"robot{r}.npz")
+        bag = os.path.join(bags, f"robot{r}.bag")
+        dst = os.path.join(conv, f"robot{r}.npz")
+        rosbag.robot_log_to_bag(bag, logs.load_log(src))
+        out["bag_bytes"].append(os.path.getsize(bag))
+        t0 = time.perf_counter()
+        printed = json.loads(call(["convert-bag", "--bag", bag, "--out", dst,
+                                   "--robot-id", str(r)]))
+        out["convert_s"].append(time.perf_counter() - t0)
+        listed = call(["convert-bag", "--bag", bag, "--list"]).strip()
+        check(printed["keyframes"] == BAG_KEYFRAMES and
+              printed["relative_measurements"] == 0,
+              f"robot {r}: convert-bag printed {printed}")
+        check(listed == f"/robot{r}/semantic_meas_sync_odom  "
+              "sloam_msgs/SemanticMeasSyncOdom",
+              f"robot {r}: convert-bag --list printed {listed!r}")
+        a, b = np.load(src), np.load(dst)
+        check(sorted(a.files) == sorted(b.files),
+              f"robot {r}: converted keys {b.files}")
+        for k in a.files:
+            want = a["odom_pose"] if k == "true_pose" else a[k]
+            check(b[k].dtype == want.dtype and np.array_equal(b[k], want),
+                  f"robot {r}: converted {k} differs from its source")
+    argv = ["run", "--logs"] + [os.path.join(conv, f"robot{r}.npz")
+                                for r in range(BAG_ROBOTS)]
+    argv += ["--results", res, "--intra-lc", *run_args]
+    t0 = time.perf_counter()
+    call(argv)
+    out["wall_s"] = time.perf_counter() - t0
+    out["kf_per_s"] = BAG_ROBOTS * BAG_KEYFRAMES / out["wall_s"]
+    with open(os.path.join(res, "summary.json")) as f:
+        out["summary"] = json.load(f)
+    out["ate_m"], out["overflow"] = {}, {}
+    for r in range(BAG_ROBOTS):
+        out["ate_m"][str(r)] = json.loads(call([
+            "eval", "--traj", os.path.join(res, f"robot{r}_trajectory.txt"),
+            "--log", os.path.join(data, f"robot{r}.npz")]))["ate_rmse_m"]
+        with open(os.path.join(res, f"robot{r}_runtime_analysis.txt")) as f:
+            out["overflow"][str(r)] = sum(
+                int(line.split(":")[1]) for line in f
+                if line.startswith("overflow_"))
+    return out
+
+
+def phase_bag_mission():
+    """bag_mission on the card (`run --sync --device cuda`: the async
+    runtime's decisions depend on how fast its workers run, in both
+    packages) in a scratch directory: decisions (summary.json) equal to the
+    JAX CLI's in the same runtime, each robot's ATE <= 1.25 x the JAX
+    run's, overflow 0; no DBSCAN launch (measurement logs)."""
+    import shutil
+    import tempfile
+    from slide_slam_tpu_torch.frontend import clustering
+    root = tempfile.mkdtemp(prefix="bag_mission_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        clustering.launch_dbscan.launches = 0
+        out = bag_mission(root, ("--sync", "--device", "cuda"))
+        out["dbscan_launches"] = clustering.launch_dbscan.launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["jax_ate_m"] = JAX_BAG_ATE_M
+    print("[slice:bag_mission] " + json.dumps(out))
+    check(out["summary"] == JAX_BAG_SUMMARY,
+          f"summary.json differs from the JAX CLI's: {JAX_BAG_SUMMARY}")
+    for r, ate in out["ate_m"].items():
+        check(ate <= BAG_ATE_RATIO * JAX_BAG_ATE_M[r],
+              f"robot {r}: ATE {ate} m above {BAG_ATE_RATIO} x the JAX "
+              f"run's {JAX_BAG_ATE_M[r]} m")
+    check(not any(out["overflow"].values()),
+          f"capacity overflow: {out['overflow']}")
+    return out
+
+
 def phase_urban(urban):
     stats, per_kf, _ = phase_slice(urban, "urban_lidar_solo", urban=True,
                                 ate_bound=URBAN_ATE_BOUND_M,
@@ -2108,6 +2430,8 @@ def main():
         kitti = run("kernel:dbscan:kitti", phase_kernel_kitti)
         run("net:range_segmentator", phase_net, urban)
         forest_run = run("slice:raw_lidar_solo", phase_slice, forest)
+        oracle = run("check:reference_oracle", phase_reference_oracle,
+                     forest_run[2], forest.traj)
         run("card_vs_cpu", phase_card_vs_cpu, forest, forest_run[1])
         unified = run("slice:unified_solo", phase_unified_solo, forest)
         urban_run = run("slice:urban_lidar_solo", phase_urban, urban)
@@ -2121,6 +2445,7 @@ def main():
         run("check:native_dsd", phase_native_dsd, maps)
         run("check:sharded_solves", phase_sharded_solves)
         run("card_vs_cpu:mission", phase_card_vs_cpu_mission)
+        bag = run("slice:bag_mission", phase_bag_mission)
         team = run("slice:spmd_team", phase_spmd_team)
         rgbd_team = run("slice:indoor_rgbd_team", phase_indoor_rgbd_team)
         run("card_vs_cpu:indoor_rgbd", phase_card_vs_cpu_rgbd)
@@ -2140,7 +2465,9 @@ def main():
         "indoor_rgbd_team": rgbd_team["dbscan_launches"],
         "kitti_dense": kitti["launches"],
         "unified_solo": unified[0]["dbscan_launches"],
-        "spmd_team": team["dbscan_launches"]}
+        "spmd_team": team["dbscan_launches"],
+        "reference_oracle": oracle["dbscan_launches"],
+        "bag_mission": bag["dbscan_launches"]}
     print(json.dumps({"kernels": [{
         "name": "dbscan", "route": "cuda",
         "source": "slide_slam_tpu_torch/csrc/dbscan.cu",

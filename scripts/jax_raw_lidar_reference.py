@@ -21,6 +21,14 @@ optimized trajectory's ATE so far, the map's median root error (each
 mapped cylinder root's XY distance to the nearest true one) and the
 landmark counts.
 
+--oracle then runs the package's own f64 reference solver
+(factorgraph/reference_solver.solve_reference, Levenberg-Marquardt to
+convergence) on the final graph state and adds its RMS and max position gap
+to the engine's estimate, the costs at the estimate and at the optimum, the
+optimum's ATE, its seconds and iterations (chip_smoke.oracle_gaps);
+chip_smoke.py's check:reference_oracle holds the card's gap to 1.25 x the
+JAX package's.
+
 --port --jax-draws feeds the port's RANSAC ground fits the JAX package's
 own draws (jax.random.PRNGKey(0)), so the two packages fit the same
 hypotheses; --out writes the per-keyframe cylinder and cuboid measurement
@@ -29,7 +37,7 @@ where two such files differ.
 
     JAX_PLATFORMS=cpu python scripts/jax_raw_lidar_reference.py [n_keyframes]
         [--urban] [--unified] [--snapshots 31,32] [--port [--jax-draws]]
-        [--out counts.json]
+        [--oracle] [--out counts.json]
     python scripts/jax_raw_lidar_reference.py --compare A.json B.json
 """
 import argparse
@@ -130,9 +138,26 @@ def compare(a_path: str, b_path: str):
                       "differing_keyframes": diff}))
 
 
+def oracle(node, traj, port):
+    """The package's f64 reference solver on the node's final state."""
+    if port:
+        from slide_slam_tpu_torch.factorgraph import reference_solver as rs
+    else:
+        from slide_slam_tpu.factorgraph import reference_solver as rs
+    cfg = node.cfg
+    state = node.state._replace(**{k: np.asarray(getattr(node.state, k))
+                                   for k in node.state._fields})
+    t0 = time.perf_counter()
+    conv, info = rs.solve_reference(state, cyl_sigma=cfg.noise.cylinder,
+                                    bearing_sigma=cfg.noise.bearing)
+    seconds = time.perf_counter() - t0
+    return chip_smoke.oracle_gaps(np.asarray(node.optimized_trajectory()),
+                                  conv, info, seconds, traj)
+
+
 def main(n_keyframes: int = 150, port: bool = False, jax_draws: bool = False,
          out: str = None, urban: bool = False, unified: bool = False,
-         snapshots=()):
+         snapshots=(), with_oracle: bool = False):
     m = synthetic.make_lidar_mission(
         n_keyframes=n_keyframes, n_cars=chip_smoke.URBAN_CARS if urban else 0)
     holder = {"pose": m.traj[0]}
@@ -184,6 +209,7 @@ def main(n_keyframes: int = 150, port: bool = False, jax_draws: bool = False,
         "landmarks": node.landmark_counts(),
         "overflow": node.overflow_report(),
         "host_seconds": time.perf_counter() - t0,
+        "oracle": oracle(node, m.traj, port) if with_oracle else None,
     }))
 
 
@@ -200,6 +226,8 @@ if __name__ == "__main__":
                     help="SolverConfig(use_schur=False): the unified solve")
     ap.add_argument("--snapshots", default="",
                     help="keyframe counts to record ATE and root error at")
+    ap.add_argument("--oracle", action="store_true",
+                    help="the f64 reference solver on the final state")
     ap.add_argument("--out", help="write per-keyframe counts to this file")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
                     help="compare two --out files and exit")
@@ -208,4 +236,4 @@ if __name__ == "__main__":
         compare(*a.compare)
     else:
         main(a.n_keyframes, a.port, a.jax_draws, a.out, a.urban, a.unified,
-             tuple(int(k) for k in a.snapshots.split(",") if k))
+             tuple(int(k) for k in a.snapshots.split(",") if k), a.oracle)

@@ -8,9 +8,13 @@ Replaces the reference's roslaunch/tmux layer (multi_robot_utils_launch):
         --results results/ --prior-tf-known
     python -m slide_slam_tpu_torch eval --traj results/robot0_trajectory.txt \
         --log data/robot0.npz
+    python -m slide_slam_tpu_torch convert-bag --bag robot0.bag \
+        --out data/robot0.npz
 
 `run` runs on the card by default (`--device cuda`); `--device cpu` runs the
-same mission on the CPU.
+same mission on the CPU; `--sync` runs it without the async worker pool,
+with decisions that do not depend on timing. `run --viz` needs matplotlib: without it, it
+raises ImportError after the mission's results are written.
 """
 from __future__ import annotations
 
@@ -43,10 +47,6 @@ def cmd_gen_logs(args):
 
 
 def cmd_run(args):
-    if args.viz:
-        raise NotImplementedError(
-            "--viz (viz.py) is not ported yet (ROADMAP: queue item "
-            "'viz and convert-bag')")
     from .config import SlamConfig, forest_config, indoor_config
     from .io import logs
     from .runtime.mission import MultiRobotMission
@@ -59,6 +59,7 @@ def cmd_run(args):
     robot_logs = [logs.load_log(p) for p in args.logs]
     mission = MultiRobotMission(cfg, robot_logs,
                                 prior_tf_known=args.prior_tf_known,
+                                async_runtime=not args.sync,
                                 device=args.device)
     report = mission.run(intra_lc=args.intra_lc, verbose=True)
     os.makedirs(args.results, exist_ok=True)
@@ -81,6 +82,15 @@ def cmd_run(args):
         print(f"robot {rid}: {summary[rid]}")
     with open(os.path.join(args.results, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
+    if args.viz:
+        from . import viz
+        truths = {log.robot_id: np.stack([k.true_pose for k in log.keyframes])
+                  for log in robot_logs}
+        png = viz.render_mission(report.nodes, truths,
+                                 os.path.join(args.results, "mission.png"))
+        print(f"wrote {png}")
+        for node in report.nodes:
+            print(viz.runtime_summary(node))
 
 
 def cmd_eval(args):
@@ -97,9 +107,19 @@ def cmd_eval(args):
 
 
 def cmd_convert_bag(args):
-    raise NotImplementedError(
-        "convert-bag (io/rosbag.py) is not ported yet (ROADMAP: queue item "
-        "'viz and convert-bag')")
+    from .io import logs, rosbag
+
+    if args.list:
+        for topic, mtype in sorted(rosbag.bag_topics(args.bag).items()):
+            print(f"{topic}  {mtype}")
+        return
+    log = rosbag.bag_to_robot_log(args.bag, robot_id=args.robot_id,
+                                  meas_topic=args.topic)
+    logs.save_log(args.out, log)
+    rel = rosbag.bag_relative_measurements(args.bag)
+    print(json.dumps({"keyframes": len(log.keyframes),
+                      "relative_measurements": len(rel),
+                      "out": args.out}))
 
 
 def main(argv=None):
@@ -128,15 +148,18 @@ def main(argv=None):
     r.add_argument("--intra-lc", action="store_true")
     r.add_argument("--comm-wait", type=float, default=5.0)
     r.add_argument("--viz", action="store_true",
-                   help="not ported yet: raises")
+                   help="render mission.png (needs matplotlib)")
     r.add_argument("--device", default="cuda",
                    help="torch device of the graphs (default cuda)")
+    r.add_argument("--sync", action="store_true",
+                   help="the synchronous runtime: each closure search is "
+                        "applied at its own tick, so decisions do not "
+                        "depend on worker timing (default: async workers)")
     r.set_defaults(func=cmd_run)
 
     c = sub.add_parser("convert-bag",
                        help="convert a ROS1 bag of SemanticMeasSyncOdom "
-                            "messages to an npz measurement log (not "
-                            "ported yet: raises)")
+                            "messages to an npz measurement log")
     c.add_argument("--bag", required=True)
     c.add_argument("--out", default="robot0.npz")
     c.add_argument("--robot-id", type=int, default=0)

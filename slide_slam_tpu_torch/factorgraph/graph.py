@@ -88,6 +88,10 @@ class GraphState(NamedTuple):
     def poses_per_robot(self) -> int:
         return self.poses.shape[0] // self.prior_pose.shape[0]
 
+    def pose_slot(self, robot, idx):
+        """Slot of a robot's idx-th pose (slot = robot * P + idx)."""
+        return robot * self.poses_per_robot + idx
+
     def _slot_parts(self):
         P = self.poses_per_robot
         ar = torch.arange(self.poses.shape[0], device=self.poses.device)

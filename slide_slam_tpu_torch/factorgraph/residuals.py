@@ -22,6 +22,12 @@ def between_residual(pose_i, pose_j, measured_rel):
     return se3.local(measured_rel, se3.between(pose_i, pose_j))
 
 
+def cylinder_project(root, ray, radius, pose):
+    """Body-frame cylinder -> map frame (CylinderMeasurement::project,
+    cylinderFactor.h:71-77): (root, ray, radius)."""
+    return se3.apply(pose, root), se3.rotate(pose, ray), radius
+
+
 def cylinder_residual(pose, lm, meas_local):
     """[lm.ray - R m.ray, lm.root - (R m.root + t), m.radius - lm.radius]."""
     p_root = se3.apply(pose, meas_local[..., 3:6])

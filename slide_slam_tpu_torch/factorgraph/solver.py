@@ -44,6 +44,22 @@ class Tangent(NamedTuple):
     pt: torch.Tensor    # [NU, 3]
 
 
+def tangent_zeros(s: GraphState) -> Tangent:
+    """A zero tangent of the state's variable capacities."""
+    z = lambda n, d: torch.zeros((n, d), dtype=s.poses.dtype,
+                                 device=s.poses.device)
+    return Tangent(pose=z(s.poses.shape[0], 6), cyl=z(s.cyl_ray.shape[0], 7),
+                   cub=z(s.cub_pose.shape[0], 9), pt=z(s.pt_pos.shape[0], 3))
+
+
+def tree_dot(a: Tangent, b: Tangent) -> torch.Tensor:
+    return sum(torch.vdot(x.reshape(-1), y.reshape(-1)) for x, y in zip(a, b))
+
+
+def tree_axpy(alpha, x: Tangent, y: Tangent) -> Tangent:
+    return Tangent(*(alpha * u + v for u, v in zip(x, y)))
+
+
 def tree_scale(alpha, x: Tangent) -> Tangent:
     return Tangent(*(alpha * u for u in x))
 

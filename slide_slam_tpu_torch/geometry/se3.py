@@ -228,6 +228,17 @@ def from_matrix(m):
     return from_quat_trans(quat_from_matrix(m[..., :3, :3]), m[..., :3, 3])
 
 
+def from_xyz_yaw(x, y, z, yaw, device=None):
+    """SE(3) with a yaw-only rotation, f32 (numbers or tensors of one
+    shape; `device` for numbers)."""
+    x, y, z, yaw = (torch.as_tensor(v, dtype=torch.float32, device=device)
+                    for v in (x, y, z, yaw))
+    half = 0.5 * yaw
+    zero = torch.zeros_like(half)
+    q = torch.stack([torch.cos(half), zero, zero, torch.sin(half)], dim=-1)
+    return from_quat_trans(q, torch.stack([x, y, z], dim=-1))
+
+
 def yaw_of(p):
     """Yaw angle of the rotation (atan2 of rotation-matrix entries)."""
     R = quat_to_matrix(quat(p))

@@ -94,6 +94,50 @@ def make_forest_world(rng: np.random.Generator, n_trees=120, n_poles=20,
                  ell_scale.astype(np.float32), ell_label)
 
 
+def world_from_reference_map(path: str, rng: np.random.Generator,
+                             radius_range=(0.15, 0.45)) -> World:
+    """A mission world from a reference-recorded object map (rows
+    `label x y z`; label 0 = tree/cylinder, other labels box-like classes).
+    Positions and labels are the map's; radii, rays, yaws and extents are
+    drawn from `rng` in the JAX package's order, so a seed gives the same
+    world in both packages."""
+    rows_ = np.loadtxt(path, dtype=np.float32).reshape(-1, 4)
+    # ground-normalize: the recorded maps live in the original robot's
+    # odometry frame (z ~ -2..-3 m), mission trajectories fly at z ~ +0.5,
+    # and the loop-closure submap's 1.5 m z gate would drop nearly all of it
+    rows_ = rows_.copy()
+    rows_[:, 3] -= np.median(rows_[:, 3])
+    cyl = rows_[rows_[:, 0] == 0]
+    other = rows_[rows_[:, 0] != 0]
+    nc = len(cyl)
+    ray = rng.normal(0, 0.02, size=(nc, 3)) + np.array([0, 0, 1.0])
+    ray /= np.linalg.norm(ray, axis=1, keepdims=True)
+    radius = rng.uniform(*radius_range, nc).astype(np.float32)
+    nk = len(other)
+    if nk:
+        yaws = rng.uniform(-np.pi, np.pi, nk)
+        cub_pose = np.stack([
+            se3.from_xyz_yaw(x, y, z + 0.8, w)
+            for (x, y, z), w in zip(other[:, 1:4], yaws)])
+        cub_scale = np.stack([
+            rng.uniform(3.8, 4.8, nk), rng.uniform(1.6, 2.0, nk),
+            rng.uniform(1.4, 1.7, nk)], axis=1).astype(np.float32)
+        # each distinct map label becomes its own class id
+        labs = np.unique(other[:, 0])
+        cub_label = np.asarray(
+            [CAR + int(np.where(labs == lab)[0][0]) for lab in other[:, 0]],
+            np.int32)
+    else:
+        cub_pose = np.zeros((0, 7), np.float32)
+        cub_scale = np.zeros((0, 3), np.float32)
+        cub_label = np.zeros((0,), np.int32)
+    return World(cyl[:, 1:4].astype(np.float32), ray.astype(np.float32),
+                 radius, np.full(nc, TREE, np.int32),
+                 cub_pose.astype(np.float32), cub_scale, cub_label,
+                 np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
+                 np.zeros((0,), np.int32))
+
+
 def lawnmower_trajectory(n_steps: int, extent=50.0, rows=4, step=1.0,
                          z=0.5) -> np.ndarray:
     """[N, 7] ground-truth key poses sweeping the area in a lawnmower path."""

@@ -28,6 +28,16 @@ class Cylinders(NamedTuple):
     def capacity(self) -> int:
         return self.root.shape[0]
 
+    @staticmethod
+    def empty(n: int, dtype=torch.float32, device="cuda") -> "Cylinders":
+        return Cylinders(
+            root=torch.zeros((n, 3), dtype=dtype, device=device),
+            ray=torch.tensor([[0.0, 0.0, 1.0]], dtype=dtype,
+                             device=device).repeat(n, 1),
+            radius=torch.zeros((n,), dtype=dtype, device=device),
+            label=torch.zeros((n,), dtype=torch.int32, device=device),
+            valid=torch.zeros((n,), dtype=torch.bool, device=device))
+
     def project(self, pose) -> "Cylinders":
         """World-frame version of body-frame cylinders; the ray transforms
         as a direction (rotation only)."""
@@ -48,6 +58,16 @@ class Cuboids(NamedTuple):
     def capacity(self) -> int:
         return self.pose.shape[0]
 
+    @classmethod
+    def empty(cls, n: int, dtype=torch.float32, device="cuda"):
+        """n invalid slots: identity poses, zero scales and labels (an
+        Ellipsoids batch from Ellipsoids.empty)."""
+        return cls(
+            pose=se3.identity((n,), dtype=dtype, device=device),
+            scale=torch.zeros((n, 3), dtype=dtype, device=device),
+            label=torch.zeros((n,), dtype=torch.int32, device=device),
+            valid=torch.zeros((n,), dtype=torch.bool, device=device))
+
     def project(self, pose) -> "Cuboids":
         return self._replace(pose=se3.compose(pose, self.pose))
 
@@ -56,7 +76,9 @@ class Cuboids(NamedTuple):
 
 
 class Ellipsoids(Cuboids):
-    """Same layout and semantics as Cuboids (pose, scale, label, valid)."""
+    """Same layout and semantics as Cuboids (pose, scale, label, valid);
+    capacity, empty, project and centroid are Cuboids' and return
+    Ellipsoids."""
 
 
 def pad_cylinders(root, ray, radius, label, n: int, device="cuda") -> Cylinders:

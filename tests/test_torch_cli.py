@@ -1,15 +1,24 @@
 """The port's command line and log files against the JAX package's
-(tests/test_io_cli.py): `gen-logs`, `run --device cpu` and `eval`.
+(tests/test_io_cli.py): `gen-logs`, `run --device cpu [--viz]`, `eval` and
+`convert-bag`.
 
 Logs written by either package load in the other unchanged; gen-logs
 writes the same arrays; `run` writes the same files (trajectories, runtime
-analysis, maps, summary.json) with the same summary (keyframes, landmark
-counts, closure counts, known TFs) and trajectories within 1 cm; `eval`
-prints the same ATE to 4 decimals of a trajectory written from the truth.
-`--viz` and `convert-bag` are not ported and raise.
+analysis, maps, summary.json, with --viz mission.png) with the same summary
+(keyframes, landmark counts, closure counts, known TFs) and trajectories
+within 1 cm, and prints the same summaries (runtime_summary's times
+aside); `eval` prints the same ATE to 4 decimals of a trajectory written
+from the truth; `convert-bag` writes the same npz and prints the same
+lines. Without matplotlib, `run --viz` raises ImportError naming it, after
+the results are written. `world_from_reference_map` builds the JAX
+package's world from a map file.
 """
+import contextlib
+import io
 import json
 import os
+import re
+import sys
 
 import numpy as np
 import pytest
@@ -50,18 +59,31 @@ def test_log_roundtrip_across_packages(tmp_path):
     _same_log(log, tlogs.load_log(str(tmp_path / "t.npz")))
 
 
+def _have_matplotlib():
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    """gen-logs and `run` (with --viz where matplotlib is installed) through
+    both CLIs: {package: (data dir, results dir, printed text)}."""
     root = tmp_path_factory.mktemp("cli")
     out = {}
+    viz = ["--viz"] if _have_matplotlib() else []
     for name, cli in (("jax", jcli), ("port", tcli)):
         data, res = str(root / f"{name}_data"), str(root / f"{name}_res")
         cli.main(["gen-logs", "--out", data] + GEN)
         extra = ["--device", "cpu"] if name == "port" else []
-        cli.main(["run", "--logs", os.path.join(data, "robot0.npz"),
-                  os.path.join(data, "robot1.npz"), "--results", res]
-                 + extra)
-        out[name] = (data, res)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["run", "--logs", os.path.join(data, "robot0.npz"),
+                      os.path.join(data, "robot1.npz"), "--results", res]
+                     + extra + viz)
+        out[name] = (data, res, buf.getvalue())
     return out
 
 
@@ -114,10 +136,101 @@ def test_eval_matches_jax(runs, capsys):
     assert printed[0]["n"] == 12
 
 
-def test_unported_commands_raise(runs, tmp_path):
-    data = runs["port"][0]
-    with pytest.raises(NotImplementedError, match="viz"):
-        tcli.main(["run", "--logs", os.path.join(data, "robot0.npz"),
-                   "--results", str(tmp_path), "--device", "cpu", "--viz"])
-    with pytest.raises(NotImplementedError, match="convert-bag"):
-        tcli.main(["convert-bag", "--bag", str(tmp_path / "x.bag")])
+def _summaries(printed):
+    """The lines `run` prints after the mission: each robot's summary,
+    with --viz the PNG path and each runtime_summary (times masked)."""
+    lines = [ln for ln in printed.splitlines()
+             if re.match(r"robot \d+: [{k]|wrote .*mission\.png", ln)]
+    return [re.sub(r"=\d+\.\dms", "=<t>ms", ln) for ln in lines]
+
+
+def test_run_viz_writes_png_and_jax_summaries(runs):
+    """`run --viz` writes mission.png and prints what the JAX CLI prints:
+    the same summary lines, the PNG's path and runtime_summary lines that
+    differ only in their measured times."""
+    if not _have_matplotlib():
+        pytest.skip("matplotlib is not installed: run --viz cannot render")
+    j, t = (_summaries(runs[k][2]) for k in ("jax", "port"))
+    assert len(t) == 2 + 1 + 2, t
+    assert t[2].startswith("wrote ") and t[2].endswith("mission.png")
+    assert t[:2] == j[:2] and t[3:] == j[3:]
+    png = os.path.join(runs["port"][1], "mission.png")
+    assert os.path.getsize(png) > 1000
+
+
+def test_run_viz_without_matplotlib_raises_after_results(runs, tmp_path,
+                                                         monkeypatch):
+    """With matplotlib unimportable, `run --viz` writes every result file,
+    then raises ImportError naming matplotlib (no silent skip)."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    res = str(tmp_path / "res")
+    with pytest.raises(ImportError, match="matplotlib"):
+        tcli.main(["run", "--logs", os.path.join(runs["port"][0],
+                                                 "robot0.npz"),
+                   "--results", res, "--device", "cpu", "--viz"])
+    assert sorted(os.listdir(res)) == [
+        "robot0_map.txt", "robot0_runtime_analysis.txt",
+        "robot0_trajectory.txt", "summary.json"]
+
+
+def test_convert_bag_matches_jax(runs, tmp_path, capsys):
+    """A bag of robot 1's gen-logs log: convert-bag through either CLI
+    writes the same arrays (true_pose: the odometry, a bag carries no
+    truth) and prints the same JSON and the same --list lines."""
+    from slide_slam_tpu_torch.io import rosbag
+    src = os.path.join(runs["port"][0], "robot1.npz")
+    bag = str(tmp_path / "robot1.bag")
+    rosbag.robot_log_to_bag(bag, tlogs.load_log(src))
+    printed, arrays = [], []
+    for name, cli in (("jax", jcli), ("port", tcli)):
+        out = str(tmp_path / f"{name}.npz")
+        cli.main(["convert-bag", "--bag", bag, "--out", out,
+                  "--robot-id", "1"])
+        got = json.loads(capsys.readouterr().out)
+        assert got.pop("out") == out
+        cli.main(["convert-bag", "--bag", bag, "--list"])
+        printed.append((got, capsys.readouterr().out))
+        arrays.append(np.load(out))
+    assert printed[0] == printed[1]
+    assert printed[1][0] == {"keyframes": 12, "relative_measurements": 0}
+    assert printed[1][1] == ("/robot1/semantic_meas_sync_odom  "
+                             "sloam_msgs/SemanticMeasSyncOdom\n")
+    a, b = arrays
+    want = np.load(src)
+    assert sorted(a.files) == sorted(b.files) == sorted(want.files)
+    for k in want.files:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+        assert b[k].dtype == a[k].dtype, k
+        np.testing.assert_array_equal(
+            b[k], want["odom_pose"] if k == "true_pose" else want[k],
+            err_msg=k)
+
+
+def test_world_from_reference_map(tmp_path):
+    """A `label x y z` map written into tmp_path (label 0 trees, two other
+    labels box-like): the same world as the JAX package's from the same
+    seed, every array bit for bit."""
+    from slide_slam_tpu.io import synthetic as jsynthetic
+    rng = np.random.default_rng(11)
+    rows = np.concatenate([
+        np.c_[np.zeros(12), rng.uniform(-20, 20, (12, 2)),
+              rng.uniform(-3, -2, 12)],
+        np.c_[rng.choice([-1.0, -3.0], 5), rng.uniform(-20, 20, (5, 2)),
+              rng.uniform(-3, -2, 5)]])
+    path = tmp_path / "robot1Map.txt"
+    np.savetxt(path, rows, fmt="%.4f")
+    for only_trees in (False, True):
+        if only_trees:
+            np.savetxt(path, rows[:12], fmt="%.4f")
+        a = synthetic.world_from_reference_map(str(path),
+                                               np.random.default_rng(2))
+        b = jsynthetic.world_from_reference_map(str(path),
+                                                np.random.default_rng(2))
+        for k, v in vars(b).items():
+            got = getattr(a, k)
+            assert got.dtype == v.dtype and got.shape == v.shape, k
+            np.testing.assert_array_equal(got, v, err_msg=k)
+        assert len(a.cyl_root) == 12
+        assert len(a.cub_label) == (0 if only_trees else 5)
+    assert np.median(rows[:12, 3]) != 0
+    assert abs(float(np.median(a.cyl_root[:, 2]))) < 1e-6

@@ -419,3 +419,70 @@ def test_sharded_solve_on_card_equals_local(kind):
     for f, a in zip(sharded._fields, sharded):
         if a.dtype in (torch.int32, torch.bool):
             assert torch.equal(a, getattr(local, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schur", [True, False])
+def test_full_solve_on_card_against_oracle(schur):
+    """The card's solve_full (Schur, or the unified solve) from
+    check:sharded_solves' state (its poses kicked 5 cm off) against the
+    port's f64 Levenberg-Marquardt oracle on a host copy of the solved
+    graph: RMS position gap < 5 cm (tests/test_solver_vs_reference.py's
+    bound after a closure) and at most a tenth of the start's (on the CPU:
+    0.39 mm against 7.3 cm), and the card's cost within 1e-2 relative of
+    the optimum's (on the CPU 1.9e-3 above it: LM ends lower along weakly
+    observed directions)."""
+    _card()
+    import dataclasses
+    import chip_smoke
+    from slide_slam_tpu_torch.factorgraph import reference_solver as rs
+    from slide_slam_tpu_torch.runtime import engine
+    cfg, state = chip_smoke.sharded_check_state("cuda")
+    cfg = cfg.replace(solver=dataclasses.replace(cfg.solver,
+                                                 use_schur=schur))
+    solved = engine.solve_full(cfg, state)
+    assert solved.poses.is_cuda
+    conv, info = rs.solve_reference(solved, cyl_sigma=cfg.noise.cylinder,
+                                    bearing_sigma=cfg.noise.bearing)
+    n = int(state.pose_count[0])
+    rms = [float(np.sqrt(np.mean(np.sum(
+        (conv[:n, 4:7] - s.poses[:n, 4:7].cpu().numpy()) ** 2, axis=1))))
+        for s in (solved, state)]
+    assert rms[0] < 0.05 and rms[0] <= 0.1 * rms[1], rms
+    assert info["initial_cost"] <= (1 + 1e-2) * info["final_cost"]
+
+
+@pytest.mark.cuda
+def test_bag_converted_on_card_machine_equals_log(tmp_path):
+    """A log written as a SemanticMeasSyncOdom bag and converted back by
+    `convert-bag` on the machine with the card: every array bit for bit
+    (true_pose the odometry: a bag carries no ground truth), and the first
+    keyframes of both logs through SlamNode on the card give the same
+    landmark counts."""
+    _card()
+    from slide_slam_tpu_torch import cli, config
+    from slide_slam_tpu_torch.io import logs, rosbag, synthetic
+    from slide_slam_tpu_torch.runtime.node import SlamNode
+    rng = np.random.default_rng(0)
+    world = synthetic.make_forest_world(rng, n_trees=30, n_poles=5,
+                                        n_cars=5, extent=25.0)
+    traj = synthetic.lawnmower_trajectory(12, extent=20.0, rows=2, step=1.5)
+    log = synthetic.make_log(world, traj, odom_drift_sigma=0.005)
+    src, bag, dst = (str(tmp_path / n) for n in ("s.npz", "r.bag", "c.npz"))
+    logs.save_log(src, log)
+    rosbag.robot_log_to_bag(bag, logs.load_log(src))
+    cli.main(["convert-bag", "--bag", bag, "--out", dst])
+    a, b = np.load(src), np.load(dst)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        want = a["odom_pose"] if k == "true_pose" else a[k]
+        assert b[k].dtype == want.dtype, k
+        np.testing.assert_array_equal(b[k], want, err_msg=k)
+    counts = []
+    for path in (src, dst):
+        node = SlamNode(config.SlamConfig(number_of_robots=1), robot_id=0,
+                        device="cuda")
+        for kf in logs.load_log(path).keyframes[:6]:
+            node.process_keyframe(kf.stamp, kf.odom_pose, vars(kf))
+        counts.append(node.landmark_counts())
+    assert counts[0] == counts[1] and counts[0]["cylinders"] > 0

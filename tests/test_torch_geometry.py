@@ -148,3 +148,44 @@ def test_cylinder_lin_vs_jax_and_jacrev():
             torch.zeros(7, dtype=torch.float64))
         np.testing.assert_allclose(Jp_t[k].numpy(), Jp.numpy(), atol=1e-3)
         np.testing.assert_allclose(Jl_t[k].numpy(), Jl.numpy(), atol=1e-3)
+
+
+def test_from_xyz_yaw_matches_jax():
+    """Numbers and [N] tensors against the JAX package's from_xyz_yaw (f32,
+    to 1e-5) and the port's numpy se3np copy (to 1e-6: torch's and numpy's
+    f32 cos / sin differ in the last bit)."""
+    from slide_slam_tpu_torch.geometry import se3np
+    rng = np.random.default_rng(5)
+    x, y, z = rng.normal(0, 10, (3, 8)).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, 8).astype(np.float32)
+    got = tse3.from_xyz_yaw(*(torch.as_tensor(v) for v in (x, y, z, yaw)))
+    assert got.shape == (8, 7) and got.dtype == torch.float32
+    _close(got, jse3.from_xyz_yaw(x, y, z, yaw))
+    np.testing.assert_allclose(got.numpy(), se3np.from_xyz_yaw(x, y, z, yaw),
+                               rtol=0, atol=1e-6)
+    one = tse3.from_xyz_yaw(1.0, -2.0, 0.5, 0.3)
+    assert one.shape == (7,)
+    _close(one, jse3.from_xyz_yaw(1.0, -2.0, 0.5, 0.3))
+
+
+def test_cylinder_project_matches_jax():
+    """Body-frame cylinders to the map frame: root, ray and radius as the
+    JAX package's cylinder_project, and the residual of a cylinder at its
+    own projection is zero."""
+    from slide_slam_tpu.factorgraph import residuals as jres
+    rng = np.random.default_rng(6)
+    pose = _poses(rng, 6)
+    root = rng.normal(0, 3, (6, 3)).astype(np.float32)
+    ray = rng.normal(size=(6, 3)).astype(np.float32)
+    ray /= np.linalg.norm(ray, axis=1, keepdims=True)
+    radius = rng.uniform(0.1, 0.5, 6).astype(np.float32)
+    got = tres.cylinder_project(*(torch.as_tensor(v)
+                                  for v in (root, ray, radius, pose)))
+    want = [jres.cylinder_project(root[i], ray[i], radius[i], pose[i])
+            for i in range(6)]
+    for k in range(3):
+        _close(got[k], np.stack([np.asarray(w[k]) for w in want]))
+    lm = torch.cat([got[1], got[0], got[2][:, None]], -1)
+    meas = torch.as_tensor(np.concatenate([ray, root, radius[:, None]], 1))
+    r = tres.cylinder_residual(torch.as_tensor(pose), lm, meas)
+    assert float(r.abs().max()) == 0.0

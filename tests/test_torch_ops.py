@@ -147,3 +147,36 @@ def test_submap_association_end_to_end():
         tassoc.match_nearest(tdist.cylinder_pairwise(ts, tsub), 3.0), t_idx)
     np.testing.assert_array_equal(tmatch.numpy(), np.asarray(jmatch))
     assert (tmatch.numpy() >= 0).any()
+
+
+@pytest.mark.parametrize("family", ["Cylinders", "Cuboids", "Ellipsoids"])
+def test_objects_empty_matches_jax(family):
+    """`empty(n)` of each family: the JAX package's arrays, field by field
+    (values, dtypes, shapes), of the calling class, on the given device."""
+    got = getattr(tobj, family).empty(5, device="cpu")
+    want = getattr(jobj, family).empty(5)
+    assert type(got).__name__ == family and got.capacity == 5
+    assert got._fields == want._fields
+    for f, a, b in zip(got._fields, got, want):
+        assert a.device.type == "cpu", f
+        assert str(a.dtype).split(".")[-1] == str(np.asarray(b).dtype), f
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f)
+    assert not bool(got.valid.any())
+    assert getattr(tobj, family).empty(3, dtype=torch.float64,
+                                       device="cpu")[0].dtype == torch.float64
+
+
+def test_pose_slot_matches_jax():
+    """GraphState.pose_slot: robot * P + idx, as the JAX package's."""
+    from _torch_parity import small_configs
+    from slide_slam_tpu.factorgraph import graph as jgraph
+    from slide_slam_tpu_torch.factorgraph import graph as tgraph
+    jcfg, tcfg = small_configs()
+    jcfg, tcfg = (c.replace(number_of_robots=3) for c in (jcfg, tcfg))
+    js = jgraph.empty_state(jcfg)
+    ts = tgraph.empty_state(tcfg, device="cpu")
+    for robot, idx in ((0, 0), (1, 5), (2, 31)):
+        assert ts.pose_slot(robot, idx) == int(js.pose_slot(robot, idx)) \
+            == robot * 32 + idx
+    slots = ts.pose_slot(torch.tensor([0, 2]), torch.tensor([3, 4]))
+    assert slots.tolist() == [3, 68]

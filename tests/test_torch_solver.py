@@ -206,3 +206,30 @@ def test_pcg_blocks_equal_early_exit():
             assert torch.equal(got, ref), (max_iters, tol, step_tol)
     finally:
         tsolver.PCG_BLOCK = old
+
+
+def test_tangent_helpers_match_jax():
+    """tangent_zeros, tree_dot, tree_axpy and tree_scale on the same
+    tangents as the JAX package's pytree helpers (f32, to 1e-5)."""
+    from _torch_parity import small_configs
+    from slide_slam_tpu.factorgraph import graph as jgraph
+    from slide_slam_tpu_torch.factorgraph import graph as tgraph
+    jcfg, tcfg = small_configs()
+    jz = jsolver.tangent_zeros(jgraph.empty_state(jcfg))
+    tz = tsolver.tangent_zeros(tgraph.empty_state(tcfg, device="cpu"))
+    assert [tuple(x.shape) for x in tz] == [x.shape for x in jz]
+    assert all(float(x.abs().sum()) == 0.0 for x in tz)
+    rng = np.random.default_rng(8)
+    a, b = ([rng.normal(size=x.shape).astype(np.float32) for x in jz]
+            for _ in range(2))
+    ta, tb = (tsolver.Tangent(*(torch.as_tensor(x) for x in v))
+              for v in (a, b))
+    ja, jb = (jsolver.Tangent(*(jnp.asarray(x) for x in v)) for v in (a, b))
+    np.testing.assert_allclose(float(tsolver.tree_dot(ta, tb)),
+                               float(jsolver.tree_dot(ja, jb)), rtol=1e-5)
+    for got, want in zip(tsolver.tree_axpy(0.5, ta, tb),
+                         jsolver.tree_axpy(0.5, ja, jb)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    for got, want in zip(tsolver.tree_scale(-2.0, ta),
+                         jsolver.tree_scale(-2.0, ja)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
