@@ -23,10 +23,20 @@ package. Phases, in this order, each of which fails the run:
                     card's bound for the same work;
    kernel:dbscan:kitti  above 1024 points: the KITTI preset at
                     max_points_per_class = 4096 over 4 dense scans through
-                    ProcessCloudPipeline (one launch per scan), and the
-                    kernel against the plain version at N = 1500, 4096 and
-                    8192 (car, tree, lightpole; labels exactly equal),
-                    times from CUDA graphs, floor, plain time and bound;
+                    ProcessCloudPipeline (one launch per scan), then at
+                    16384 over one scan whose tree class holds 14000 points
+                    and at 65536 over a 64 x 1024 street range image whose
+                    car class holds ~22000 (each one launch, labels equal
+                    to the plain version's; a trunk in the first, >= 5 car
+                    clusters in the second), and the
+                    kernel against the plain version at N = 1500, 4096,
+                    8192, 16384 and 65536 (car, tree, lightpole; labels
+                    exactly equal) and on the range image's car, ground
+                    and building surfaces at 32768, times from CUDA
+                    graphs, floor, plain time and the bound of the work
+                    these inputs need, and at 4096, 8192, 65536 and on the
+                    range image the time by phase from a build with clock
+                    stamps;
 3. net:range_segmentator  the full-width RangeSegmentator (20 classes,
                     stage blocks (1, 2, 8, 8, 4), 64x1024, seeded init):
                     f32 logits card (TF32 off) vs CPU, the bf16 forward's
@@ -160,8 +170,9 @@ forest's largest keyframe (two classes, both stages), `floor_ms` an empty
 kernel's of the same launch shape, `plain_ms` the plain version's time for
 the same batch on the card, `bound_ms` the card's least time for the four
 problems' work; `urban_c3` holds the same for the urban C = 3 launch and
-`kitti_c3` for the KITTI sets at N = 1500, 4096 and 8192 (one launch per
-scan through the global-memory path).
+`kitti_c3` for the KITTI sets at N = 1500, 4096, 8192, 16384 and 65536
+(one launch per scan through the sparse N > 1024 path), `range_image_c3`
+for the street range image's car, ground and building surfaces at 32768.
 """
 import json
 import math
@@ -298,45 +309,70 @@ def card_line():
 
 # ---------------------------------------------------------------------------
 def phase_build():
-    """nvcc for csrc/dbscan.cu and g++ for the native runtime core, at
-    once."""
+    """nvcc for csrc/dbscan.cu (and its build with phase stamps,
+    -DDBSCAN_CLOCKS) and g++ for the native runtime core, at once."""
     from concurrent.futures import ThreadPoolExecutor
     from slide_slam_tpu_torch import kernels, native
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         cpp = pool.submit(native.load)
-        libs = kernels.build_all(["dbscan"], verbose=True)
+        libs = kernels.build_all(["dbscan", ("dbscan", CLOCKS)], verbose=True)
         check(cpp.result() is not None, "g++ could not build the native "
               "runtime core (native/*.cpp)")
-    print(f"[build] {sorted(libs)} + {native.library_path().name} in "
+    print(f"[build] {sorted(map(str, libs))} + {native.library_path().name} in "
           f"{time.perf_counter() - t0:.2f} s")
 
 
-def dbscan_work(points, valid, eps, min_samples, max_iters=64):
-    """Operations the DBSCAN function needs on these inputs (data-dependent
-    part counted from the plain algorithm): per valid pair 8 flops of d2
-    and one compare; per executed sweep one min per core-core edge; one min
-    per border-core edge."""
+def dbscan_work(points, valid, eps2, min_samples, max_iters=64):
+    """Operations the DBSCAN function needs on these inputs, counted from
+    the plain algorithm's run on them, and that run's labels: the valid
+    points' spatial order (nv log2 nv compares), per neighbour pair its d2
+    and compare (9), one add per neighbour to the degrees, per sweep one
+    min per core-core edge out of a row that changed in the sweep before
+    (every edge in the first), and one min per border-core edge. Pairs
+    further apart than eps are not counted: a spatial order need not test
+    them. In the plain version's row blocks, so that it counts at 65536
+    points too."""
     import torch
-    from slide_slam_tpu_torch.frontend.clustering import _eps2
-    d = points[:, None, :] - points[None, :, :]
-    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
-    nbr = valid[:, None] & valid[None, :] & (d2 <= float(_eps2(eps)))
-    core = valid & (nbr.sum(1) >= min_samples)
-    core_edge = nbr & core[:, None] & core[None, :]
-    n = points.shape[0]
+    from slide_slam_tpu_torch.frontend import clustering
+    nbr = clustering.neighbour_graph(points, valid, eps2)
+    deg = nbr.sum(1)
+    core = valid & (deg >= min_samples)
+    n, nv = points.shape[0], int(valid.sum())
+    step = clustering._rows(n)
+    blocks = [slice(r, r + step) for r in range(0, n, step)]
+    edge = lambda b: nbr[b] & core[b, None] & core[None, :]
+    core_nbrs = torch.cat([(nbr[b] & core[None, :]).sum(1) for b in blocks])
+    out_edges = torch.where(core, core_nbrs, 0)   # core-core, self included
     lab = torch.where(core, torch.arange(n, device=points.device), n + 1)
-    sweeps = 0
+    changed, relaxed = core, 0
     for _ in range(max_iters):
-        new = torch.minimum(lab, torch.where(core_edge, lab[None, :],
-                                             n + 1).min(1).values)
-        sweeps += 1
-        if bool((new == lab).all()):
+        # core-core edges are symmetric: the rows that read a changed label
+        # are the changed rows' core neighbours
+        relaxed += int(out_edges[changed].sum())
+        new = torch.cat([torch.minimum(lab[b], torch.where(
+            edge(b), lab[None, :], n + 1).min(1).values) for b in blocks])
+        changed = new != lab
+        if not bool(changed.any()):
             break
         lab = new
-    nv = int(valid.sum())
-    border_edges = int((nbr & core[None, :] & ~core[:, None]).sum())
-    return 9 * nv * nv + sweeps * int(core_edge.sum()) + border_edges
+    border = torch.cat([torch.where(nbr[b] & core[None, :], lab[None, :],
+                                    n + 1).min(1).values for b in blocks])
+    labels = torch.where(core, lab, torch.where(border <= n, border, -1))
+    labels = torch.where(valid, labels, -1)
+    pairs = (int(deg.sum()) - nv) // 2
+    order = nv * math.ceil(math.log2(max(nv, 2)))
+    return (order + 9 * pairs + int(deg.sum()) + relaxed
+            + int(core_nbrs[valid & ~core].sum())), labels
+
+
+def two_stage_work(points, valid, params):
+    """dbscan_work of both stages of one set (params: eps_1^2, ms_1,
+    eps_2^2, ms_2), the second over the first one's non-noise points."""
+    ops1, lab1 = dbscan_work(points, valid, params[0], int(params[1]))
+    ops2, _ = dbscan_work(points, valid & (lab1 >= 0), params[2],
+                          int(params[3]))
+    return ops1 + ops2
 
 
 def class_labels(mission, k):
@@ -445,7 +481,7 @@ def phase_kernel(mission):
         k_ms = graph_ms(lambda: clustering.launch_dbscan(
             p[None], v[None], one, stages=1))
         p_ms = cuda_ms(lambda: clustering.dbscan_reference(p, v, eps, ms), 5)
-        ops = dbscan_work(p, v, eps, ms)
+        ops, _ = dbscan_work(p, v, clustering._eps2(eps), ms)
         bound, by = dbscan_bound(ops, 1024 * (12 + 1 + 4) + 16)
         rows.append(dict(problem=name, valid=int(v.sum()), kernel_ms=k_ms,
                          plain_ms=p_ms, bound_ms=bound, bound_by=by, ops=ops))
@@ -520,13 +556,7 @@ def phase_kernel_urban(urban):
     err = int((got.long() - ref.long()).abs().max())
     check(torch.equal(got, ref), "batched dbscan kernel != plain on the urban "
           f"keyframe's C = 3 batch: {int((got != ref).sum())} labels differ")
-    ops = 0
-    for c, p, v in zip(specs, pts, valid):
-        lab1 = clustering.dbscan_reference(p, v, c.eps_noise,
-                                           c.min_samples_noise)
-        ops += dbscan_work(p, v, c.eps_noise, c.min_samples_noise)
-        ops += dbscan_work(p, v & (lab1 >= 0), c.eps_cluster,
-                           c.min_samples_cluster)
+    ops = sum(two_stage_work(p, v, q) for p, v, q in zip(pts, valid, params))
     ms = graph_ms(lambda: clustering.launch_dbscan(pts, valid, params))
     plain_ms = cuda_ms(lambda: clustering.two_stage_cluster_reference(
         pts, valid, params), 5)
@@ -1538,22 +1568,28 @@ def phase_card_vs_cpu_rgbd(devices=("cuda", "cpu")):
 
 
 KITTI_SCANS = 4
-KITTI_SIZES = (1500, 4096, 8192)
+# the kernel against the plain version: up to the old 12288-point cap, then
+# above it up to a whole 64 x 1024 range image in one class
+KITTI_SIZES = (1500, 4096, 8192, 16384, 65536)
+KITTI_SPLIT_SIZES = (4096, 8192, 65536)  # phase stamps (DBSCAN_CLOCKS)
+KITTI_BIG_TRUNK = 14000             # one scan's tree class above the old cap
+CLOCKS = ("DBSCAN_CLOCKS",)
+STAMPS = 24                         # int64 stamps a CTA (csrc/dbscan.cu kStamps)
 
 
-def kitti_dense_scan(rng):
+def kitti_dense_scan(rng, trunk=2000):
     """One dense scan of the KITTI preset's test (tests/test_frontend.py:
-    312-331): 300 ground points, a 4000-point car box, a 2000-point trunk,
-    with their KITTI labels (ground 40, car 10, tree 71)."""
+    312-331): 300 ground points, a 4000-point car box, a `trunk`-point
+    trunk, with their KITTI labels (ground 40, car 10, tree 71)."""
     from slide_slam_tpu_torch.io.synthetic import (synth_box_points,
                                                    synth_tree_points)
     g_xy = rng.uniform(-15, 15, (300, 2))
     pts = [np.column_stack([g_xy, np.zeros(300)]),
            synth_box_points(rng, [8.0, 2.0, 0.75], [2.0, 1.0, 0.8], 0.4,
                             4000),
-           synth_tree_points(rng, [4.0, -4.0, 0.0], 0.3, n=2000)]
+           synth_tree_points(rng, [4.0, -4.0, 0.0], 0.3, n=trunk)]
     labels = np.concatenate([np.full(300, 40), np.full(4000, 10),
-                             np.full(2000, 71)])
+                             np.full(trunk, 71)])
     return np.concatenate(pts).astype(np.float32), labels
 
 
@@ -1584,16 +1620,228 @@ def kitti_sets(n, seed=9):
     return pts, valid, np.stack(params)
 
 
+RANGE_IMAGE = (64, 1024)            # beams x azimuths of an HDL-64 image
+RANGE_IMAGE_SENSOR = (0.0, 0.0, 1.73)
+# the range image's surfaces as kernel sets, with the car's stage parameters,
+# padded to RANGE_IMAGE_SET_POINTS (above the old cap, above every class)
+RANGE_IMAGE_SETS = (("car", 10), ("ground", 40), ("building", 50))
+RANGE_IMAGE_SET_POINTS = 32768
+RANGE_IMAGE_CARS = 5                # car clusters the pipeline must find
+
+
+def range_image_scan(cols=None):
+    """A street scan of a 64 x 1024 HDL-64 range image: 64 beams from +3 to
+    -25 deg (RangeNet++'s KITTI projection), 1024 azimuths, the sensor 1.73 m
+    above the ground; ground (40), two facades (50), parked cars along both
+    curbs (10), trunks (71) and poles (80) on the sidewalks, 1 cm range
+    noise, no return past 100 m; `cols` keeps the first azimuths only.
+    Returns world-frame points [M, 3] (the sensor at RANGE_IMAGE_SENSOR)
+    and their KITTI labels. Every class is a surface: the points a ray
+    meets."""
+    rng = np.random.default_rng(3)
+    beams, width = RANGE_IMAGE
+    cols = width if cols is None else cols
+    el = np.deg2rad(np.linspace(3.0, -25.0, beams))
+    az = 2 * np.pi * np.arange(cols) / width
+    el, az = np.meshgrid(el, az, indexing="ij")
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)], -1).reshape(-1, 3)
+    o = np.array(RANGE_IMAGE_SENSOR)
+    t = np.full(len(d), np.inf)
+    lab = np.zeros(len(d), int)
+
+    def hit(tt, label):
+        better = (tt > 0) & (tt < t)
+        t[better] = tt[better]
+        lab[better] = label
+    with np.errstate(divide="ignore", invalid="ignore"):
+        hit(np.where(d[:, 2] < 0, -o[2] / d[:, 2], np.inf), 40)
+        for y in (9.0, -8.0):
+            hit(np.where(d[:, 1] * y > 0, y / d[:, 1], np.inf), 50)
+        # cars: yawed boxes 4.2 x 1.8 x 1.5 along both curbs (slab test in
+        # each box's frame)
+        for side in (5.5, -4.8):
+            x = -50.0 + rng.uniform(0, 3)
+            while x < 50:
+                if rng.uniform() < 0.7:
+                    yaw = rng.normal(0, 0.05)
+                    c, s = np.cos(yaw), np.sin(yaw)
+                    R = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1.0]])
+                    ctr = np.array([x, side + rng.normal(0, 0.1), 0.8])
+                    half = np.array([2.1, 0.9, 0.75])
+                    ol, dl = R @ (o - ctr), d @ R.T
+                    lo = (-half - ol) / dl
+                    hi = (half - ol) / dl
+                    tn = np.minimum(lo, hi).max(1)
+                    tf = np.maximum(lo, hi).min(1)
+                    hit(np.where(tf >= np.maximum(tn, 0), tn, np.inf), 10)
+                x += 4.2 + rng.uniform(0.8, 3.0)
+        # trunks (3 m) and poles (6 m): vertical cylinders on the sidewalks
+        a = d[:, 0] ** 2 + d[:, 1] ** 2
+        for label, yline, step, r, h in ((71, 7.3, 8.0, (0.12, 0.3), 3.0),
+                                         (80, -6.6, 25.0, (0.1, 0.1), 6.0)):
+            for x in np.arange(-48.0, 48.0, step) + rng.uniform(0, step):
+                rad = rng.uniform(*r)
+                cx, cy = x, yline + rng.normal(0, 0.1)
+                b = 2 * (d[:, 0] * (o[0] - cx) + d[:, 1] * (o[1] - cy))
+                cc = (o[0] - cx) ** 2 + (o[1] - cy) ** 2 - rad ** 2
+                disc = b * b - 4 * a * cc
+                tt = (-b - np.sqrt(disc)) / (2 * a)
+                z = o[2] + tt * d[:, 2]
+                hit(np.where((disc > 0) & (z >= 0) & (z <= h), tt, np.inf),
+                    label)
+    t = t + rng.normal(0, 0.01, len(t))
+    keep = np.isfinite(t) & (t < 100.0)
+    pts = (o + t[keep, None] * d[keep]).astype(np.float32)
+    return pts, lab[keep]
+
+
+def range_image_sets():
+    """The range image's car, ground and building points padded to
+    RANGE_IMAGE_SET_POINTS, each with the KITTI preset's car stage
+    parameters (eps 0.1 / 7, 0.5 / 10)."""
+    from slide_slam_tpu_torch.frontend import clustering
+    from slide_slam_tpu_torch.frontend.pipeline import kitti_pipeline_config
+    xyz, lab = range_image_scan()
+    car = next(c for c in kitti_pipeline_config().classes if c.name == "car")
+    shape = (len(RANGE_IMAGE_SETS), RANGE_IMAGE_SET_POINTS)
+    pts = np.zeros(shape + (3,), np.float32)
+    valid = np.zeros(shape, bool)
+    for c, (_, label) in enumerate(RANGE_IMAGE_SETS):
+        p = xyz[lab == label][:RANGE_IMAGE_SET_POINTS]
+        pts[c, :len(p)] = p
+        valid[c, :len(p)] = True
+    params = clustering.stage_params(car.eps_noise, car.min_samples_noise,
+                                     car.eps_cluster, car.min_samples_cluster)
+    return pts, valid, np.stack([params] * len(RANGE_IMAGE_SETS))
+
+
+def dbscan_stage_split(pts, valid, params, ref):
+    """The N > 1024 kernel's time by phase, from the clock stamps of its
+    -DDBSCAN_CLOCKS build (a library of its own, whose launches are not
+    counted): per set, ms of the order, then per stage compaction and
+    boxes, the block build, the sweeps and the border pass, and the sweeps
+    run; labels checked against `ref`, the plain version's. Cycles become
+    ms through the globaltimer span of the same CTA (rank 0)."""
+    import ctypes
+    import torch
+    from slide_slam_tpu_torch import kernels
+    from slide_slam_tpu_torch.frontend import clustering
+    lib = kernels.load("dbscan", CLOCKS)
+    lib.dbscan_scratch_words.argtypes = [ctypes.c_int]
+    lib.dbscan_scratch_words.restype = ctypes.c_longlong
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.dbscan_two_stage_launch.argtypes = [P, P, P, P, P] + [I] * 5 + [P]
+    lib.dbscan_set_clock_buffer.argtypes = [P]
+    C, n = valid.shape
+    cl = clustering.auto_cluster_size(n)
+    buf = torch.zeros(C * cl * STAMPS, dtype=torch.int64, device="cuda")
+    labels = torch.empty((C, n), dtype=torch.int32, device="cuda")
+    scratch = torch.empty(C * lib.dbscan_scratch_words(n),
+                          dtype=torch.int32, device="cuda")
+
+    def launch():
+        err = lib.dbscan_two_stage_launch(
+            pts.data_ptr(), valid.view(torch.uint8).data_ptr(),
+            params.data_ptr(), labels.data_ptr(), scratch.data_ptr(), C, n,
+            2, 64, cl, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"stamped dbscan launch failed: CUDA error {err}")
+    launch()                                  # first launch: attributes
+    torch.cuda.synchronize()
+    check(lib.dbscan_set_clock_buffer(buf.data_ptr()) == 0,
+          "could not set the clock buffer")
+    launch()
+    torch.cuda.synchronize()
+    lib.dbscan_set_clock_buffer(None)
+    check(torch.equal(labels, ref), "the stamped kernel's labels != plain")
+    st = buf.view(C, cl, STAMPS)[:, 0].tolist()
+    out = []
+    for c in range(C):
+        x = st[c]
+        ns_per_cycle = (x[13] - x[12]) / max(x[9] - x[0], 1)
+        ms = lambda a, b: (x[b] - x[a]) * ns_per_cycle * 1e-6
+        out.append(dict(
+            order_ms=ms(0, 1),
+            stages=[dict(compact_ms=ms(1 if k == 0 else 5 + 4 * (k - 1),
+                                       2 + 4 * k),
+                         build_ms=ms(2 + 4 * k, 3 + 4 * k),
+                         sweep_ms=ms(3 + 4 * k, 4 + 4 * k),
+                         border_ms=ms(4 + 4 * k, 5 + 4 * k),
+                         sweeps=int(x[10 + k]),
+                         sweep_relax_ms=x[14 + 3 * k] * ns_per_cycle * 1e-6,
+                         sweep_push_ms=x[15 + 3 * k] * ns_per_cycle * 1e-6,
+                         sweep_barrier_ms=x[16 + 3 * k] * ns_per_cycle
+                         * 1e-6) for k in range(2)],
+            total_ms=(x[13] - x[12]) * 1e-6))
+    return out
+
+
+def pipeline_one_launch(max_points, xyz, lab, pose):
+    """One scan through the KITTI preset's ProcessCloudPipeline on the card
+    at `max_points` a class, with the launch count set to 0 just before:
+    its observations, class sizes, launches and each clustered class's
+    cluster count; the one launch's labels must equal the plain
+    version's."""
+    import dataclasses
+    import torch
+    from slide_slam_tpu_torch.frontend import clustering
+    from slide_slam_tpu_torch.frontend.pipeline import (ProcessCloudPipeline,
+                                                        kitti_pipeline_config)
+    pipeline = ProcessCloudPipeline(dataclasses.replace(
+        kitti_pipeline_config(), max_points_per_class=max_points),
+        device="cuda")
+    calls = []
+    batch = clustering.two_stage_cluster_batch
+
+    def recorded(points, valid, params):
+        labels = batch(points, valid, params)
+        calls.append((points.clone(), valid.clone(), params.clone(),
+                      labels.clone()))
+        return labels
+    torch.cuda.synchronize()
+    clustering.two_stage_cluster_batch = recorded
+    clustering.launch_dbscan.launches = 0
+    try:
+        obs = pipeline.process_scan(xyz, lab, pose)
+        torch.cuda.synchronize()
+    finally:
+        clustering.two_stage_cluster_batch = batch
+    launches = clustering.launch_dbscan.launches
+    check(launches == 1 and len(calls) == 1,
+          f"{launches} DBSCAN launches for one {max_points}-point scan")
+    bp, bv, bq, blab = calls[0]
+    check(torch.equal(blab, clustering.two_stage_cluster_reference(bp, bv, bq)),
+          f"the {max_points}-point scan's labels != plain")
+    clusters = {spec.name: int(torch.unique(r[r >= 0]).numel())
+                for spec, r in zip(
+                    [c for c in pipeline.cfg.classes
+                     if pipeline.class_points.get(c.name, 0)
+                     >= c.min_samples_cluster], blab)}
+    print(f"[kernel:dbscan:kitti] pipeline at max_points_per_class = "
+          f"{max_points}: class points {pipeline.class_points}, one launch "
+          f"[{bp.shape[0]}, {bp.shape[1]}], clusters {clusters}, "
+          f"{len(obs.get('cyl_root', []))} trunk(s), labels equal to plain")
+    return obs, pipeline.class_points, launches, clusters
+
+
 def phase_kernel_kitti():
     """F1: the DBSCAN kernel above 1024 points. The KITTI preset at
     max_points_per_class = 4096 runs over KITTI_SCANS dense scans through
     the port's ProcessCloudPipeline on the card (one launch per scan, the
-    count set to 0 just before), and the kernel is held to the plain
-    version on the card, labels exactly equal, at N = 1500, 4096, 8192 (car,
-    tree, lightpole sets, both stages, one launch); times per scan from
-    CUDA graphs, the empty-kernel floor of the same launch shape, the plain
-    version's time and the card's bound."""
+    count set to 0 just before), then at 16384 over one scan whose tree
+    class holds KITTI_BIG_TRUNK points and at 65536 over the street range
+    image (range_image_scan), whose car class holds ~22000 points: each one
+    launch with labels equal to the plain version's, a trunk in the first,
+    RANGE_IMAGE_CARS car clusters or more in the second. The kernel is
+    held to the plain version on the card, labels exactly equal, at every
+    N of KITTI_SIZES (car, tree, lightpole sets, both stages, one launch)
+    and on the range image's surfaces (RANGE_IMAGE_SETS, padded to
+    RANGE_IMAGE_SET_POINTS); times per scan from CUDA graphs, the
+    empty-kernel floor of the same launch shape, the plain version's time,
+    the card's bound (dbscan_work), and at KITTI_SPLIT_SIZES and on the
+    range image the time by phase."""
     import dataclasses
+    import functools
     import torch
     from slide_slam_tpu_torch.frontend import clustering
     from slide_slam_tpu_torch.frontend.pipeline import (ProcessCloudPipeline,
@@ -1616,43 +1864,86 @@ def phase_kernel_kitti():
     check(len(obs.get("cyl_root", [])) >= 1 and len(obs.get("cub_pose", []))
           >= 1, "the KITTI scan gave no trunk or no car")
 
+    # classes above the old 12288 cap: a dense tree class at 16384 a class,
+    # the range image's car class at 65536
+    xyz, lab = kitti_dense_scan(rng, trunk=KITTI_BIG_TRUNK)
+    big_obs, points, big, _ = pipeline_one_launch(16384, xyz, lab,
+                                                  se3np.identity())
+    check(points["tree"] > 12288, f"the tree class is not above 12288 "
+          f"points: {points['tree']}")
+    check(len(big_obs.get("cyl_root", [])) >= 1,
+          "the 16384-point KITTI scan gave no trunk")
+    xyz, lab = range_image_scan()
+    pose = se3np.identity()
+    pose[4:7] = RANGE_IMAGE_SENSOR
+    _, points, image, clusters = pipeline_one_launch(65536, xyz, lab, pose)
+    check(points["car"] > 12288, f"the range image's car class is not above "
+          f"12288 points: {points['car']}")
+    check(clusters["car"] >= RANGE_IMAGE_CARS, f"the range image gave "
+          f"{clusters['car']} car clusters")
+
+    batches = [(f"N = {n}, [3, {n}] car/tree/lightpole", n,
+                functools.partial(kitti_sets, n), ("car", "tree", "lightpole"),
+                n in KITTI_SPLIT_SIZES) for n in KITTI_SIZES]
+    batches.append((f"range image surfaces, [3, {RANGE_IMAGE_SET_POINTS}]",
+                    "range_image", range_image_sets,
+                    [c for c, _ in RANGE_IMAGE_SETS], True))
     rows, max_err = {}, 0
-    for n in KITTI_SIZES:
+    for title, key, make, names, split in batches:
         pts, valid, params = (torch.as_tensor(a, device="cuda")
-                              for a in kitti_sets(n))
+                              for a in make())
+        n = pts.shape[1]
         got = clustering.two_stage_cluster_batch(pts, valid, params)
-        ref = clustering.two_stage_cluster_reference(pts, valid, params)
-        torch.cuda.synchronize()
+        ops = sum(two_stage_work(p, v, q) for p, v, q in zip(pts, valid,
+                                                              params))
+        large = n > 16384
+        if large:       # one timed call of the plain version, its labels
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref = clustering.two_stage_cluster_reference(pts, valid, params)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+        else:
+            ref = clustering.two_stage_cluster_reference(pts, valid, params)
+            plain_ms = cuda_ms(lambda: clustering.two_stage_cluster_reference(
+                pts, valid, params), 2)
         max_err = max(max_err, int((got.long() - ref.long()).abs().max()))
-        check(torch.equal(got, ref), f"dbscan kernel != plain at N = {n}: "
+        check(torch.equal(got, ref), f"dbscan kernel != plain at {title}: "
               f"{int((got != ref).sum())} labels differ")
         clusters = [int(torch.unique(r[r >= 0]).numel()) for r in ref]
-        ops = 0
-        for c in range(3):
-            e1, m1, e2, m2 = params[c].tolist()
-            lab1 = clustering._dbscan_plain(pts[c], valid[c], params[c, 0],
-                                            int(m1), 64)
-            ops += dbscan_work(pts[c], valid[c], math.sqrt(e1), int(m1))
-            ops += dbscan_work(pts[c], valid[c] & (lab1 >= 0), math.sqrt(e2),
-                               int(m2))
         ms = graph_ms(lambda: clustering.launch_dbscan(pts, valid, params),
-                      per_graph=10, reps=5)
+                      per_graph=4 if large else 10, reps=3 if large else 5)
         floor_ms = graph_ms(lambda: clustering.launch_empty(3, n=n))
-        plain_ms = cuda_ms(lambda: clustering.two_stage_cluster_reference(
-            pts, valid, params), 2)
         bound, by = dbscan_bound(ops, pts.numel() * 4 + valid.numel()
                                  + params.numel() * 4 + got.numel() * 4)
-        rows[n] = dict(ms=ms, floor_ms=floor_ms, plain_ms=plain_ms,
-                       bound_ms=bound, bound_by=by, ops=ops,
-                       points=[int(v.sum()) for v in valid],
-                       clusters=clusters,
-                       cluster_ctas=clustering.auto_cluster_size(n))
-        print(f"[kernel:dbscan:kitti] N = {n}, [3, {n}] car/tree/lightpole "
-              f"x 2 stages, one launch: points {rows[n]['points']}, clusters "
-              f"{clusters}: kernel {ms:.4f} ms  empty-kernel floor "
-              f"{floor_ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-              f"{bound:.6f} ms ({by}, {ops} ops)  labels equal")
-    return dict(launches=launches, max_abs_err=max_err, by_n=rows)
+        rows[key] = dict(ms=ms, floor_ms=floor_ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, ops=ops,
+                         points=[int(v.sum()) for v in valid],
+                         clusters=clusters,
+                         cluster_ctas=clustering.auto_cluster_size(n))
+        print(f"[kernel:dbscan:kitti] {title} x 2 stages, one launch: points "
+              f"{rows[key]['points']}, clusters {clusters}: kernel {ms:.4f} "
+              f"ms  empty-kernel floor {floor_ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  bound {bound:.6f} ms ({by}, {ops} ops)  "
+              f"labels equal")
+        if split:
+            rows[key]["split"] = dbscan_stage_split(pts, valid, params, ref)
+            for name, sp in zip(names, rows[key]["split"]):
+                parts = "; ".join(
+                    f"stage {k + 1}: compact+boxes {st['compact_ms']:.4f}, "
+                    f"build {st['build_ms']:.4f}, sweeps {st['sweep_ms']:.4f}"
+                    f" ({st['sweeps']} sweeps), border {st['border_ms']:.4f}"
+                    for k, st in enumerate(sp["stages"]))
+                print(f"[kernel:dbscan:kitti] {title.split(',')[0]} {name} "
+                      f"split (ms, stamped build): order "
+                      f"{sp['order_ms']:.4f}; {parts}; whole "
+                      f"{sp['total_ms']:.4f}")
+        del pts, valid, params, got, ref
+        torch.cuda.empty_cache()
+    return dict(launches=launches + big + image, max_abs_err=max_err,
+                by_n=rows)
 
 
 # slice:unified_solo: the forest mission with SolverConfig(use_schur=False)
@@ -2468,6 +2759,8 @@ def main():
         "spmd_team": team["dbscan_launches"],
         "reference_oracle": oracle["dbscan_launches"],
         "bag_mission": bag["dbscan_launches"]}
+    timing = lambda r: {k: r[k] for k in ("ms", "floor_ms", "plain_ms",
+                                          "bound_ms", "bound_by")}
     print(json.dumps({"kernels": [{
         "name": "dbscan", "route": "cuda",
         "source": "slide_slam_tpu_torch/csrc/dbscan.cu",
@@ -2481,9 +2774,9 @@ def main():
         "bound_by": kern["bound_by"], "library_ms": None,
         "urban_c3": {k: urb[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by")},
-        "kitti_c3": {str(n): {k: r[k] for k in ("ms", "floor_ms", "plain_ms",
-                                                "bound_ms", "bound_by")}
-                     for n, r in kitti["by_n"].items()},
+        "kitti_c3": {str(n): timing(r) for n, r in kitti["by_n"].items()
+                     if isinstance(n, int)},
+        "range_image_c3": timing(kitti["by_n"]["range_image"]),
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 cluster sizes, stage by stage, and against other builds of the kernel.
 
     python scripts/dbscan_bench.py [--old OLD.cu] [--variants A.cu ...]
-        [--breakdown] [--out results.json]
+        [--breakdown] [--parent PARENT.cu] [--kitti-clusters]
+        [--out results.json]
 
 Inputs: the chip_smoke mission's keyframe with the largest tree class, its
 tree and lightpole classes padded to [2, 1024]. Every time is device time
@@ -22,15 +23,26 @@ from a CUDA graph of back-to-back launches (no host in the way):
   stream)` (one block per problem, one stage per launch), built with the
   same flags, timed for the scan's four launches (stage-2 valid flags made
   beforehand), in turns with the current kernel: old, new, new, old;
-* `variants`: sources with the current C entry point, each in turns with
-  the current kernel (current, variants, variants reversed, current) at
-  cluster sizes 4, 8, 16, labels checked against the plain version;
-* `parent`: a source with the C entry point of the N <= 1024-only kernel
-  (no scratch argument, e.g. the parent commit's csrc/dbscan.cu), timed in
-  turns with the current kernel (parent, current, current, parent) at the
-  cluster size the library picks, on the forest scan's [2, 1024] batch and
-  on the urban path's [3, 1024] car/tree/lightpole batch (chip_smoke's
-  kernel:dbscan and kernel:dbscan:urban inputs), labels checked.
+* `variants`: sources with the current C entry point (e.g. the kernel
+  with other tuning constants), each in turns with the current kernel
+  (current, variants, variants reversed, current) at cluster sizes 4, 8,
+  16 on the scan, then at the auto cluster size on the big sets (below),
+  labels checked against the plain version;
+* `parent`: another build of the kernel, e.g. the parent commit's
+  csrc/dbscan.cu (with or without the scratch argument of the N > 1024
+  path), timed in turns with the current kernel (parent, current, current,
+  parent) at the cluster size the library picks, on the forest scan's
+  [2, 1024] batch, the urban path's [3, 1024] car/tree/lightpole batch
+  (chip_smoke's kernel:dbscan and kernel:dbscan:urban inputs) and the
+  big sets (the current kernel alone above the parent's largest set),
+  labels checked;
+* `kitti_clusters`: the current kernel on the big sets at cluster sizes 4,
+  8 and 16 (where the set fits), in turns.
+
+The big sets are chip_smoke's KITTI sets at every N of KITTI_SIZES and the
+street range image's car, ground and building surfaces
+(chip_smoke.range_image_sets). The kernel's time by phase prints in
+chip_smoke's kernel:dbscan:kitti.
 """
 import argparse
 import ctypes
@@ -97,10 +109,20 @@ def with_current_entry(lib: ctypes.CDLL, scratch: bool = True) -> ctypes.CDLL:
 
 def launcher(lib, pts, valid, params, stages=2, max_iters=64, cluster=0):
     """A launch of a library with the current C entry point (or the
-    N <= 1024-only one, for a library marked no_scratch)."""
+    N <= 1024-only one, for a library marked no_scratch); the scratch
+    buffer, where the library takes one, is allocated once here."""
+    words = 0
+    if not getattr(lib, "no_scratch", False):
+        lib.dbscan_scratch_words.argtypes = [I]
+        lib.dbscan_scratch_words.restype = ctypes.c_longlong
+        words = lib.dbscan_scratch_words(pts.shape[1])
+    buf = (torch.empty(pts.shape[0] * words, dtype=torch.int32, device="cuda")
+           if words else None)
+
     def fn():
         lab = torch.empty(valid.shape, dtype=torch.int32, device="cuda")
-        scratch = () if getattr(lib, "no_scratch", False) else (None,)
+        scratch = () if getattr(lib, "no_scratch", False) else (
+            None if buf is None else buf.data_ptr(),)
         err = lib.dbscan_two_stage_launch(
             pts.data_ptr(), valid.view(torch.uint8).data_ptr(),
             params.data_ptr(), lab.data_ptr(), *scratch, pts.shape[0],
@@ -157,21 +179,40 @@ def urban_batch():
                 c.min_samples_cluster)) for c in specs]))
 
 
-def parent_turns(cur, parent):
-    """The current kernel and a parent build of the N <= 1024-only kernel
-    in turns (parent, current, current, parent) at the auto cluster size,
-    on the forest scan and the urban batch."""
-    parent = with_current_entry(parent, scratch=False)
+def big_batches():
+    cuda = lambda sets: [torch.as_tensor(a, device="cuda") for a in sets]
+    for n in chip_smoke.KITTI_SIZES:
+        yield f"kitti_c3_{n}", cuda(chip_smoke.kitti_sets(n))
+    yield (f"range_image_c3_{chip_smoke.RANGE_IMAGE_SET_POINTS}",
+           cuda(chip_smoke.range_image_sets()))
+
+
+def parent_turns(cur, parent, src: Path):
+    """The current kernel and a parent build in turns (parent, current,
+    current, parent) at the auto cluster size, on the forest scan, the
+    urban batch and the KITTI sets; above the parent's largest set the
+    current kernel alone."""
+    scratch = "int32_t* scratch, int sets" in src.read_text()
+    parent = with_current_entry(parent, scratch=scratch)
+    limit = 1024
+    if scratch:
+        parent.dbscan_max_points.restype = I
+        limit = parent.dbscan_max_points()
     out = {}
-    for name, (pts, valid, params) in (("forest_c2", scan_batch()),
-                                       ("urban_c3", urban_batch())):
+    batches = [("forest_c2", scan_batch()), ("urban_c3", urban_batch())]
+    for name, (pts, valid, params) in batches + list(big_batches()):
         ref = clustering.two_stage_cluster_reference(pts, valid, params)
-        fns = {"parent": launcher(parent, pts, valid, params),
-               "current": launcher(cur, pts, valid, params)}
+        fns = {"current": launcher(cur, pts, valid, params)}
+        if pts.shape[1] <= limit:
+            fns["parent"] = launcher(parent, pts, valid, params)
         equal = {w: bool(torch.equal(f(), ref)) for w, f in fns.items()}
+        order = (("parent", "current", "current", "parent")
+                 if "parent" in fns else ("current", "current"))
         out[name] = {"labels_equal": equal,
-                     "turns": [(w, us(fns[w])) for w in
-                               ("parent", "current", "current", "parent")]}
+                     "turns": [(w, us(fns[w])) for w in order]}
+        print(name, json.dumps(out[name]), flush=True)
+        del fns, ref
+        torch.cuda.empty_cache()
     return out
 
 
@@ -203,6 +244,8 @@ def main():
                     help="sources with the current C entry point")
     ap.add_argument("--parent", type=Path,
                     help="a source with the N <= 1024-only C entry point")
+    ap.add_argument("--kitti-clusters", action="store_true",
+                    help="the big sets at cluster sizes 4, 8, 16")
     ap.add_argument("--breakdown", action="store_true")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
     a = ap.parse_args()
@@ -263,8 +306,31 @@ def main():
             (name, cl, us(launcher(libs[name], pts, valid, params,
                                    cluster=cl)))
             for name in order for cl in (4, 8, 16)]
+        res["variant_big_turns_us"] = {}
+        for batch, (bp, bv, bq) in big_batches():
+            bref = clustering.two_stage_cluster_reference(bp, bv, bq)
+            fns = {name: launcher(lib, bp, bv, bq)
+                   for name, lib in libs.items()}
+            res["variant_big_turns_us"][batch] = {
+                "labels_equal": {name: bool(torch.equal(fn(), bref))
+                                 for name, fn in fns.items()},
+                "turns": [(name, us(fns[name])) for name in order]}
+            print(batch, json.dumps(res["variant_big_turns_us"][batch]),
+                  flush=True)
+            del fns, bref
+            torch.cuda.empty_cache()
     if a.parent:
-        res["parent_turns_us"] = parent_turns(cur, build_other(a.parent))
+        res["parent_turns_us"] = parent_turns(cur, build_other(a.parent),
+                                              a.parent)
+    if a.kitti_clusters:
+        res["kitti_clusters_us"] = {}
+        for name, (pts, valid, params) in big_batches():
+            fns = {cl: launcher(cur, pts, valid, params, cluster=cl)
+                   for cl in (4, 8, 16)
+                   if pts.shape[1] <= cl * clustering.ROWS_PER_CTA}
+            res["kitti_clusters_us"][name] = [
+                (cl, us(fns[cl])) for cl in list(fns) + list(fns)[::-1]]
+            print(name, res["kitti_clusters_us"][name], flush=True)
     res["clocks"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,

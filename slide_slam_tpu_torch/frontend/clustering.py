@@ -13,11 +13,13 @@ cap of `max_iters` sweeps, border points to their min core-neighbour label,
 noise and invalid points -1; a cluster's id is its lowest member index.
 `two_stage_cluster_batch` runs the reference's two-layer DBSCAN
 (clustering.two_stage_cluster) on a batch of point sets, on the card in one
-launch. The kernel takes up to MAX_POINTS points per set: up to 1024 with
-the adjacency in shared memory, above that with it in a scratch buffer in
-global memory (N^2 / 8 bytes per set: 8 MiB at 8192), the cap set by the
-compacted points that every CTA keeps in shared memory (16 B each, 192 KiB
-at 12288).
+launch. The kernel takes up to MAX_POINTS = 65536 points per set (a whole
+64 x 1024 range image): up to 1024 with the adjacency in shared memory,
+above that with the points in Morton order and the live 32 x 32 tile pairs
+in a scratch buffer in global memory that grows with the live pairs
+(bounded by all of them: 512 MiB a set at 65536), the labels in the CTAs'
+shared memory, ROWS_PER_CTA a CTA. Above MAX_POINTS a CUDA tensor raises.
+The plain version works in row blocks, so it runs at 65536 points too.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ import torch
 
 from .. import kernels
 
-MAX_POINTS = 12288     # csrc/dbscan.cu kBigMaxPoints
+MAX_POINTS = 65536     # csrc/dbscan.cu kBigMaxPoints
+ROWS_PER_CTA = 8192    # csrc/dbscan.cu kRowsPerCta: labels a CTA holds
 
 
 def _eps2(eps: float) -> np.float32:
@@ -44,37 +47,70 @@ def stage_params(eps_noise: float, min_samples_noise: int,
                      _eps2(eps_cluster), min_samples_cluster], np.float32)
 
 
+# elements of one [rows, N] block of the plain version (its [rows, N, 3]
+# differences are 3x that many floats): 400 MB of differences per block
+PLAIN_BLOCK_ELEMENTS = 1 << 25
+
+
+def _rows(n: int) -> int:
+    """Rows of one block of the plain version at n points a set."""
+    return max(1, min(n, PLAIN_BLOCK_ELEMENTS // max(n, 1)))
+
+
+def neighbour_graph(points, valid, eps2):
+    """The eps-adjacency nbr [N, N] bool (self included, valid pairs only),
+    built from [rows, N] blocks: d2 from differences, in the JAX order."""
+    n = points.shape[0]
+    nbr = torch.empty((n, n), dtype=torch.bool, device=points.device)
+    step = _rows(n)
+    for r0 in range(0, n, step):
+        d = points[r0:r0 + step, None, :] - points[None, :, :]
+        d2 = d[..., 0] * d[..., 0]
+        for k in range(1, points.shape[1]):
+            d2 = d2 + d[..., k] * d[..., k]
+        nbr[r0:r0 + step] = (valid[r0:r0 + step, None] & valid[None, :]
+                             & (d2 <= eps2))
+    return nbr
+
+
+def _block_min(mask, labels, inf):
+    """min over the columns j with mask[i, j] of labels[j], per row i of the
+    block (inf where none)."""
+    return torch.where(mask, labels[None, :], inf).min(dim=1).values
+
+
 def _dbscan_plain(points, valid, eps2, min_samples: int, max_iters: int):
     n = points.shape[0]
-    d = points[:, None, :] - points[None, :, :]
-    d2 = d[..., 0] * d[..., 0]
-    for k in range(1, points.shape[1]):
-        d2 = d2 + d[..., k] * d[..., k]
-    ok = valid[:, None] & valid[None, :]
-    nbr = ok & (d2 <= eps2)
+    nbr = neighbour_graph(points, valid, eps2)
     core = valid & (nbr.sum(dim=1) >= min_samples)
-    core_edge = nbr & core[:, None] & core[None, :]
     inf = n + 1
     ar = torch.arange(n, dtype=torch.int32, device=points.device)
     labels = torch.where(core, ar, inf)
-    full_inf = torch.full((n, n), inf, dtype=torch.int32,
-                          device=points.device)
+    step = _rows(n)
+    blocks = [slice(r0, r0 + step) for r0 in range(0, n, step)]
+    core_edge = torch.empty_like(nbr)
+    for b in blocks:
+        core_edge[b] = nbr[b] & core[b, None] & core[None, :]
     for _ in range(max_iters):
-        neigh = torch.where(core_edge, labels[None, :], full_inf)
-        new = torch.minimum(labels, neigh.min(dim=1).values)
+        new = torch.cat([torch.minimum(labels[b],
+                                       _block_min(core_edge[b], labels, inf))
+                         for b in blocks]) if n else labels
         changed = bool((new != labels).any())
         labels = new
         if not changed:
             break
-    border = torch.where(nbr & core[None, :], labels[None, :],
-                         full_inf).min(dim=1).values
+    del core_edge
+    border = torch.cat([_block_min(nbr[b] & core[None, :], labels, inf)
+                        for b in blocks]) if n else labels
     out = torch.where(core, labels, torch.where(border < inf, border, -1))
     return torch.where(valid, out, -1).to(torch.int32)
 
 
 def dbscan_reference(points: torch.Tensor, valid: torch.Tensor, eps: float,
                      min_samples: int, max_iters: int = 64) -> torch.Tensor:
-    """points [N, D], valid [N] -> labels [N] int32 (-1 noise/invalid)."""
+    """points [N, D], valid [N] -> labels [N] int32 (-1 noise/invalid).
+    Works in blocks of PLAIN_BLOCK_ELEMENTS elements; the labels do not
+    depend on the block size."""
     eps2 = torch.as_tensor(_eps2(eps), device=points.device)
     return _dbscan_plain(points, valid, eps2, min_samples, max_iters)
 
@@ -110,17 +146,20 @@ def _lib() -> ctypes.CDLL:
         lib.dbscan_scratch_words.argtypes = [i]
         lib.dbscan_scratch_words.restype = ctypes.c_longlong
         lib.dbscan_max_points.argtypes = []
+        lib.dbscan_rows_per_cta.argtypes = []
         for fn in (lib.dbscan_two_stage_launch, lib.dbscan_empty_launch,
-                   lib.dbscan_auto_cluster, lib.dbscan_max_points):
+                   lib.dbscan_auto_cluster, lib.dbscan_max_points,
+                   lib.dbscan_rows_per_cta):
             fn.restype = ctypes.c_int
-        if lib.dbscan_max_points() != MAX_POINTS:
-            raise RuntimeError("csrc/dbscan.cu and clustering.MAX_POINTS "
-                               "disagree on the largest set")
+        if (lib.dbscan_max_points(), lib.dbscan_rows_per_cta()) != (
+                MAX_POINTS, ROWS_PER_CTA):
+            raise RuntimeError("csrc/dbscan.cu and clustering.py disagree on "
+                               "the largest set or the rows of a CTA")
         _library = lib
     return _library
 
 
-def _check(points, valid, params, stages: int):
+def _check(points, valid, params, stages: int, cluster: int = 0):
     if not (points.is_cuda and valid.is_cuda and params.is_cuda):
         raise ValueError("the DBSCAN kernel takes CUDA tensors")
     if points.dim() != 3 or points.shape[2] != 3:
@@ -143,6 +182,10 @@ def _check(points, valid, params, stages: int):
         raise ValueError("points, valid and params must be contiguous")
     if stages not in (1, 2):
         raise ValueError(f"stages must be 1 or 2, got {stages}")
+    if n > 1024 and cluster > 0 and n > cluster * ROWS_PER_CTA:
+        raise ValueError(f"N={n} points a set need at least "
+                         f"{-(-n // ROWS_PER_CTA)} CTAs ({ROWS_PER_CTA} "
+                         f"labels each), got cluster={cluster}")
 
 
 def launch_dbscan(points: torch.Tensor, valid: torch.Tensor,
@@ -151,11 +194,12 @@ def launch_dbscan(points: torch.Tensor, valid: torch.Tensor,
     """The kernel on C point sets lying on the card: points [C, N, 3] f32,
     valid [C, N] bool, params [C, 4] f32 -> labels [C, N] int32, one launch
     for every set and stage, `cluster` CTAs of a thread-block cluster per set
-    (0: 16 where the card can place a cluster that large, else 8). Above
-    1024 points per set the kernel works in a scratch buffer allocated here.
-    Launches on the current stream without synchronising; each launch adds
-    one to `launch_dbscan.launches`."""
-    _check(points, valid, params, stages)
+    (0: 16 where the card can place a cluster that large, else 8; above 1024
+    points at least N / ROWS_PER_CTA). Above 1024 points per set the kernel
+    works in a scratch buffer allocated here. Launches on the current stream
+    without synchronising; each launch adds one to
+    `launch_dbscan.launches`."""
+    _check(points, valid, params, stages, int(cluster))
     C, n, _ = points.shape
     lib = _lib()
     labels = torch.empty((C, n), dtype=torch.int32, device=points.device)

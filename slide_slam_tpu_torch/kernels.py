@@ -35,20 +35,26 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def _flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines=()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha256(src + " ".join(_flags(defines)).encode()
+                         ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build(name: str, verbose: bool = False) -> Path:
-    """Compile csrc/<name>.cu unless an up-to-date library exists."""
-    out = library_path(name)
+def build(name: str, verbose: bool = False, defines=()) -> Path:
+    """Compile csrc/<name>.cu unless an up-to-date library exists; `defines`
+    are preprocessor names set for this build (a library of its own)."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -62,17 +68,23 @@ def build(name: str, verbose: bool = False) -> Path:
 
 def build_all(names, verbose: bool = False) -> dict:
     """Build several sources at once: one nvcc process each, all started
-    together. Returns {name: library path}."""
+    together. `names` holds source names or (name, defines) pairs. Returns
+    {name or pair: library path}."""
+    def one(n):
+        return build(n, verbose) if isinstance(n, str) else build(
+            n[0], verbose, n[1])
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        futures = {n: pool.submit(build, n, verbose) for n in names}
+        futures = {n: pool.submit(one, n) for n in names}
         return {n: f.result() for n, f in futures.items()}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of csrc/<name>.cu, built on first use."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The ctypes handle of csrc/<name>.cu (built with `defines`), built on
+    first use."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _loaded[name] = lib
+            lib = ctypes.CDLL(str(build(name, defines=defines)))
+            _loaded[key] = lib
         return lib

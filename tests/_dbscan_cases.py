@@ -10,7 +10,8 @@ with valid flags that are not a prefix, a 176-point class and the chain, and
 a [2, 1024] batch shaped like a scan's. Above 1024 points (the kernel's
 global-memory path): dense trunks, one dense blob that is a single cluster,
 a chain of the whole set, all points invalid, and the dense scan of the
-KITTI preset's test (tests/test_frontend.py:312-331).
+KITTI preset's test (tests/test_frontend.py:312-331); on the card also
+above the old 12288-point cap and at 65536 points (a whole range image).
 """
 import numpy as np
 
@@ -131,6 +132,12 @@ def stack(batch):
 
 
 BIG_SIZES = (1025, 1500, 4096, 8192)
+# above the old 12288-point cap: the card tests only (the plain version's
+# sweeps over N^2 take minutes on a CPU there)
+CARD_BIG_SIZES = (12289, 16384)
+# a whole 64 x 1024 range image in one class: the kernel's limit
+WHOLE_IMAGE = 65536
+WHOLE_IMAGE_CASES = ("trees", "chain_whole_set")
 
 
 def forest(n, seed=12):

@@ -17,7 +17,8 @@ import torch
 
 from slide_slam_tpu_torch.frontend import clustering
 
-from _dbscan_cases import (BIG_SIZES, CASES, big_batch, big_cases,
+from _dbscan_cases import (BIG_SIZES, CARD_BIG_SIZES, CASES, WHOLE_IMAGE,
+                           WHOLE_IMAGE_CASES, big_batch, big_cases,
                            kitti_dense_batch, slice_batch, stack, trees,
                            two_stage_batch)
 
@@ -74,7 +75,10 @@ def test_dbscan_kernel_refuses_what_it_cannot_take():
                           0.5, 5)
 
 
-BIG = [(n, i) for n in BIG_SIZES for i in range(len(big_cases(n)))]
+BIG = ([(n, i) for n in BIG_SIZES + CARD_BIG_SIZES
+        for i in range(len(big_cases(n)))]
+       + [(WHOLE_IMAGE, i) for i, c in enumerate(big_cases(WHOLE_IMAGE))
+          if c[0] in WHOLE_IMAGE_CASES])
 
 
 @pytest.mark.cuda
@@ -96,7 +100,7 @@ def test_dbscan_kernel_above_1024_equals_plain(n, i):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", BIG_SIZES)
+@pytest.mark.parametrize("n", BIG_SIZES + CARD_BIG_SIZES)
 def test_batched_kernel_above_1024_equals_plain(n):
     _card()
     pts, valid, params = stack(big_batch(n))
@@ -122,6 +126,71 @@ def test_kitti_dense_scan_equals_plain(cluster):
     ref = clustering.two_stage_cluster_reference(*args)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_kitti_dense_scan_one_launch_equals_plain(n):
+    """The KITTI dense scan's car, tree and lightpole sets at 4096 and (above
+    the old cap) 16384 points a set, at the cluster size the library picks:
+    one launch, labels exactly equal, clusters found."""
+    _card()
+    pts, valid, params = stack(kitti_dense_batch(n))
+    args = [torch.as_tensor(a, device="cuda") for a in (pts, valid, params)]
+    before = clustering.launch_dbscan.launches
+    got = clustering.two_stage_cluster_batch(*args)
+    assert clustering.launch_dbscan.launches == before + 1
+    ref = clustering.two_stage_cluster_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert (ref >= 0).any(dim=1).sum() >= 2
+
+
+@pytest.mark.cuda
+def test_range_image_surfaces_equal_plain():
+    """A street range image's car, ground and building classes (surfaces,
+    22088 / 30032 / 12377 points, stage-1 chains past the 64-sweep cap)
+    at chip_smoke's RANGE_IMAGE_SET_POINTS a set: one launch, labels
+    exactly equal to the plain version's."""
+    import chip_smoke
+    _card()
+    args = [torch.as_tensor(a, device="cuda")
+            for a in chip_smoke.range_image_sets()]
+    before = clustering.launch_dbscan.launches
+    got = clustering.two_stage_cluster_batch(*args)
+    assert clustering.launch_dbscan.launches == before + 1
+    ref = clustering.two_stage_cluster_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert (ref >= 0).any(dim=1).all()
+
+
+@pytest.mark.cuda
+def test_launch_refuses_above_the_limit():
+    """Above MAX_POINTS (65536, a whole range image) a set raises with its
+    size in the message, as does a set with more points than the requested
+    CTAs hold labels; nothing falls back to the plain version or the
+    CPU."""
+    _card()
+    n = clustering.MAX_POINTS + 1
+    p = torch.zeros(1, n, 3, device="cuda")
+    v = torch.ones(1, n, dtype=torch.bool, device="cuda")
+    q = torch.zeros(1, 4, device="cuda")
+    before = clustering.launch_dbscan.launches
+    with pytest.raises(ValueError, match=str(n)):
+        clustering.launch_dbscan(p, v, q)
+    with pytest.raises(ValueError, match=str(n)):
+        clustering.two_stage_cluster_batch(p, v, q)
+    m = 2 * clustering.ROWS_PER_CTA
+    with pytest.raises(ValueError, match=str(m)):
+        clustering.launch_dbscan(p[:, :m].contiguous(),
+                                 v[:, :m].contiguous(), q, cluster=1)
+    assert clustering.launch_dbscan.launches == before
+    assert clustering.MAX_POINTS == clustering._lib().dbscan_max_points()
+    # the limit covers a 64 x 1024 range image in one class, and the
+    # cluster size `cluster=0` falls back to (8) holds that many labels
+    assert clustering.MAX_POINTS >= 64 * 1024
+    assert clustering.MAX_POINTS <= 8 * clustering.ROWS_PER_CTA
 
 
 BATCHES = {"cases": two_stage_batch(), "slice_2x1024": slice_batch()}

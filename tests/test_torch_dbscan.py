@@ -19,8 +19,8 @@ from slide_slam_tpu.frontend.clustering_pallas import dbscan_pallas
 from slide_slam_tpu_torch.frontend import clustering as tclust
 from slide_slam_tpu_torch.frontend.pipeline import forest_classes
 
-from _dbscan_cases import (CASES, SLICE_PARAMS, big_batch, chain,
-                           kitti_dense_batch, stack, trees,
+from _dbscan_cases import (BIG_SIZES, CASES, SLICE_PARAMS, big_batch,
+                           big_cases, chain, kitti_dense_batch, stack, trees,
                            two_stage_batch)
 
 
@@ -130,3 +130,111 @@ def test_batched_plain_above_1024_equals_jax_two_stage(n):
         ref = jclust.two_stage_cluster(jnp.asarray(p), jnp.asarray(v), *args)
         np.testing.assert_array_equal(got[c], np.asarray(ref), err_msg=name)
     assert (got >= 0).any(axis=1).sum() >= 2
+
+
+# The plain version in row blocks (it must run at 65536 points on the card,
+# where one [N, N, 3] difference tensor would take 51 GB): the same labels
+# as the JAX function and as one block, at block sizes that divide no N.
+ODD_BLOCK = 97
+
+
+def blocks_of(monkeypatch, rows):
+    """Make the plain version work in blocks of `rows` rows."""
+    monkeypatch.setattr(tclust, "_rows", lambda n: max(1, min(n, rows)))
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_blocked_plain_equals_jax_dbscan(monkeypatch, case):
+    _, (pts, valid), eps, ms = case
+    blocks_of(monkeypatch, ODD_BLOCK)
+    got = tclust.dbscan_reference(torch.as_tensor(pts),
+                                  torch.as_tensor(valid), eps, ms)
+    np.testing.assert_array_equal(got.numpy(), _jax(pts, valid, eps, ms))
+
+
+@pytest.fixture(scope="module")
+def blocked_batch_labels():
+    pts, valid, params = stack(BATCH)
+    with pytest.MonkeyPatch.context() as mp:
+        blocks_of(mp, ODD_BLOCK)
+        return tclust.two_stage_cluster_reference(
+            torch.as_tensor(pts), torch.as_tensor(valid),
+            torch.as_tensor(params)).numpy()
+
+
+@pytest.mark.parametrize("c", range(len(BATCH)), ids=[b[0] for b in BATCH])
+def test_blocked_batch_equals_jax_two_stage(blocked_batch_labels, c):
+    _, (pts, valid), args = BATCH[c]
+    ref = jclust.two_stage_cluster(jnp.asarray(pts), jnp.asarray(valid), *args)
+    np.testing.assert_array_equal(blocked_batch_labels[c], np.asarray(ref))
+
+
+@pytest.mark.parametrize("n", BIG_SIZES)
+def test_blocked_plain_above_1024_equals_jax(monkeypatch, n):
+    """The big cases at every size the card tests take above 1024 points
+    (dense trunks, one blob, a chain of the whole set, scattered valid
+    flags, no valid point), both stages, in blocks of n // 3 + 1 rows."""
+    batch = big_batch(n)
+    pts, valid, params = stack(batch)
+    blocks_of(monkeypatch, n // 3 + 1)
+    got = tclust.two_stage_cluster_reference(
+        torch.as_tensor(pts), torch.as_tensor(valid),
+        torch.as_tensor(params)).numpy()
+    for c, (name, (p, v), args) in enumerate(batch):
+        ref = jclust.two_stage_cluster(jnp.asarray(p), jnp.asarray(v), *args)
+        np.testing.assert_array_equal(got[c], np.asarray(ref), err_msg=name)
+
+
+def test_blocked_plain_kitti_equals_jax(monkeypatch):
+    batch = kitti_dense_batch(4096)
+    pts, valid, params = stack(batch)
+    blocks_of(monkeypatch, 1000)
+    got = tclust.two_stage_cluster_reference(
+        torch.as_tensor(pts), torch.as_tensor(valid),
+        torch.as_tensor(params)).numpy()
+    for c, (name, (p, v), args) in enumerate(batch):
+        ref = jclust.two_stage_cluster(jnp.asarray(p), jnp.asarray(v), *args)
+        np.testing.assert_array_equal(got[c], np.asarray(ref), err_msg=name)
+    assert (got >= 0).any(axis=1).sum() >= 2
+
+
+UNBLOCKED = [(name, s, eps, ms) for name, s, eps, ms in big_cases(1500)] + [
+    ("chain_gt_64_hops", chain(), 0.6, 2)]
+
+
+@pytest.mark.parametrize("case", UNBLOCKED, ids=[c[0] for c in UNBLOCKED])
+def test_blocked_equals_unblocked(monkeypatch, case):
+    """1500 points in blocks of 448 (the last block 156 rows) give the
+    labels of one block of every row, capped sweeps (> 64 hops) included."""
+    _, (pts, valid), eps, ms = case
+    n = len(pts)
+    assert tclust._rows(n) == n           # the default is one block
+    p, v = torch.as_tensor(pts), torch.as_tensor(valid)
+    one = tclust.dbscan_reference(p, v, eps, ms)
+    one5 = tclust.dbscan_reference(p, v, eps, ms, max_iters=5)
+    blocks_of(monkeypatch, 448)
+    assert torch.equal(tclust.dbscan_reference(p, v, eps, ms), one)
+    assert torch.equal(tclust.dbscan_reference(p, v, eps, ms, max_iters=5),
+                       one5)
+
+
+# Surfaces, as a range image gives them: chip_smoke's street scan (the
+# card's kernel:dbscan:kitti runs all 64 x 1024 of it), here its first 192
+# azimuths, each class with the KITTI preset's car parameters.
+@pytest.fixture(scope="module")
+def range_image_slice():
+    import chip_smoke
+    return chip_smoke.range_image_scan(cols=192), chip_smoke.RANGE_IMAGE_SETS
+
+
+@pytest.mark.parametrize("c", range(3), ids=["car", "ground", "building"])
+def test_range_image_surfaces_plain_equals_jax(range_image_slice, c):
+    (xyz, lab), sets = range_image_slice
+    pts = xyz[lab == sets[c][1]]
+    valid = np.ones(len(pts), bool)
+    got = tclust.two_stage_cluster(torch.as_tensor(pts),
+                                   torch.as_tensor(valid), 0.1, 7, 0.5, 10)
+    ref = jclust.two_stage_cluster(jnp.asarray(pts), jnp.asarray(valid), 0.1,
+                                   7, 0.5, 10)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert len(pts) > 1024 and (got.numpy() >= 0).any()
