@@ -160,12 +160,31 @@ package. Phases, in this order, each of which fails the run:
                     the CPU: every labelled cloud's label, instance and
                     valid identical, xyz within 1e-6 m, instance
                     measurements identical in count and order, poses within
-                    1e-3 m.
+                    1e-3 m;
+14. multicard:team  the team across cards: one process per card (at most
+                    4; 1, 2 or 4 ranks) in one NCCL group started by
+                    parallel/multiprocess.launch, each rank on its card
+                    running the JAX dry run's discovery mission (4 robots,
+                    512 poses and 1024 cylinders a robot, 10 steps,
+                    SlideMatch TF discovery after step 5 over the gathered
+                    cylinder maps), tests/test_multiprocess.py's team step
+                    (8 robots, 1 + 3 steps), both sharded solves of
+                    check:sharded_solves (one shard a rank, sums
+                    all-reduced) and the DBSCAN kernel at 1024 and 4096
+                    points; held against the same work in this process on
+                    card 0: the same TFs found, counts identical, poses
+                    within MULTICARD_POSE_TOL, the solves within
+                    SHARDED_POSE_TOL and 1e-3 relative cost, labels equal
+                    on every card (also launched from this process, card 0
+                    current). Prints the world size, step and solve
+                    seconds, and the collectives a step runs.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 the line {"ok": true, "device": {...}}. In the kernels line, `launches` is
 the DBSCAN launch count summed over the paths (one per scan; per path under
-`launches_by_path`), `ms` the device time of one per-scan launch of the
+`launches_by_path`; the multicard path launches it never, and the launches
+of the ranks' checks against the plain version stand apart under
+`check_launches`), `ms` the device time of one per-scan launch of the
 forest's largest keyframe (two classes, both stages), `floor_ms` an empty
 kernel's of the same launch shape, `plain_ms` the plain version's time for
 the same batch on the card, `bound_ms` the card's least time for the four
@@ -2263,21 +2282,13 @@ def phase_sharded_solves(device="cuda"):
     lockstep), each held to the unsharded solve (engine.solve_full, the
     default solver budget) of the same state on the card; `device` lets
     the check be rehearsed on the CPU."""
-    import dataclasses
     import torch
-    from slide_slam_tpu_torch.config import SolverConfig
     from slide_slam_tpu_torch.factorgraph import solver
-    from slide_slam_tpu_torch.parallel import distributed_ba as dba
-    from slide_slam_tpu_torch.parallel import landmark_sharded as ls
     from slide_slam_tpu_torch.runtime import engine
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     base, start = sharded_check_state(device)
     out = {}
-    for name, schur_path, fn in (
-            ("factor_sharded_unified", False, dba.distributed_solve),
-            ("landmark_sharded_schur", True, ls.landmark_sharded_solve)):
-        cfg = base.replace(solver=dataclasses.replace(
-            SolverConfig(), use_schur=schur_path))
+    for name, cfg, fn in sharded_configs(base):
         sync()
         t0 = time.perf_counter()
         local = engine.solve_full(cfg, start)
@@ -2309,6 +2320,332 @@ def phase_sharded_solves(device="cuda"):
                       f"{name}: {f} differs from the local solve's")
     print(f"[check:sharded_solves] {SHARDS} shards: " + json.dumps(out))
     return out
+
+
+# multicard:team: the team across cards, one process per card (at most
+# MULTICARD_MAX_CARDS; the world size is the largest of 1, 2, 4 that the
+# cards allow, so the robots split evenly), joined to one NCCL group by
+# parallel/multiprocess.launch. Each rank runs, on its own card: the dry
+# run's discovery mission (team_mission.run_team_mission: 4 robots at the
+# dry run's capacities, 10 steps, SlideMatch after step 5), the team step
+# of tests/test_multiprocess.py (8 robots, every TF seeded, 1 + 3 steps),
+# both sharded solves of check:sharded_solves' state (one shard a rank,
+# their sums all-reduced), and the DBSCAN kernel on kitti_sets at 1024 and
+# 4096 points. The parent holds every rank's rows against the same work in
+# this one process on card 0 (the mission twice: its spread), and runs the
+# kernel on every card from this process, card 0 current. A rank that
+# fails, hangs or dies fails the launch (the others are killed).
+MULTICARD_MAX_CARDS = 4
+MULTICARD_TIMEOUT_S = 300.0
+MISSION_ROBOTS = 4
+MISSION_STEPS = 10
+TEAM_STEP_ROBOTS = 8
+TEAM_STEP_STEPS = 3
+TEAM_STEP_CAP = dict(max_poses_per_robot=32, max_cylinders=64, max_cuboids=32,
+                     max_points=32, max_scan_objects=16,
+                     max_cylinder_factors=256, max_cuboid_factors=128,
+                     max_point_factors=128, max_between_factors=8)
+MULTICARD_DBSCAN_SIZES = (1024, 4096)
+# B, the bound on every folded pose against the one-process run on card 0:
+# the larger of the JAX dry run's 1e-4 m (__graft_entry__.py:222) and 10 x
+# the largest gap between the phase's two one-process runs on one card
+# (its mission_spread_one_process, at most 5.96e-08 m, and
+# team_spread_one_process, at most 1.07e-14 m, over four runs of this phase
+# on H100s; PERF.md §6)
+MULTICARD_POSE_TOL = 1e-4
+
+
+def team_step_config():
+    from slide_slam_tpu_torch.config import CapacityConfig, SlamConfig
+    return SlamConfig(number_of_robots=TEAM_STEP_ROBOTS,
+                      capacity=CapacityConfig(**TEAM_STEP_CAP))
+
+
+def sharded_configs(base):
+    """check:sharded_solves' two solves: (name, config, sharded function)."""
+    import dataclasses
+    from slide_slam_tpu_torch.config import SolverConfig
+    from slide_slam_tpu_torch.parallel import distributed_ba as dba
+    from slide_slam_tpu_torch.parallel import landmark_sharded as ls
+    return [(name, base.replace(solver=dataclasses.replace(
+        SolverConfig(), use_schur=schur)), fn) for name, schur, fn in (
+            ("factor_sharded_unified", False, dba.distributed_solve),
+            ("landmark_sharded_schur", True, ls.landmark_sharded_solve))]
+
+
+def _int_state(graph):
+    import torch
+    return {f: a.cpu().numpy() for f, a in zip(graph._fields, graph)
+            if a.dtype in (torch.int32, torch.bool)}
+
+
+def _traffic():
+    from slide_slam_tpu_torch.parallel import multiprocess as mp
+    from slide_slam_tpu_torch.parallel.reduce import all_reduce_sum
+    return np.array([mp.local_batch_to_global.calls,
+                     mp.local_batch_to_global.bytes, all_reduce_sum.calls,
+                     all_reduce_sum.bytes])
+
+
+def _traffic_dict(t, per=1):
+    return dict(all_gathers=t[0] / per, all_gather_bytes=t[1] / per,
+                all_reduces=t[2] / per, all_reduce_bytes=t[3] / per)
+
+
+def mission_rows(res):
+    """A discovery mission's result on the host."""
+    g = res.state.graph
+    return dict(robots=res.robots, found=[list(p) for p in res.found],
+                poses=g.poses.cpu().numpy(), counts=g.pose_count.cpu().numpy(),
+                cyl=g.cyl_count.cpu().numpy(),
+                tf_valid=res.state.tf_valid.cpu().numpy(),
+                step_s=res.step_s, discovery_s=res.discovery_s)
+
+
+def dbscan_check(device):
+    """The kernel on kitti_sets at MULTICARD_DBSCAN_SIZES on `device`
+    against the plain version there: {n: (labels equal, largest label
+    gap)}."""
+    import torch
+    from slide_slam_tpu_torch.frontend import clustering
+    out = {}
+    for n in MULTICARD_DBSCAN_SIZES:
+        pts, valid, params = (torch.as_tensor(a, device=device)
+                              for a in kitti_sets(n))
+        got = clustering.two_stage_cluster_batch(pts, valid, params)
+        ref = clustering.two_stage_cluster_reference(pts, valid, params)
+        check(got.device == pts.device, f"labels on {got.device}, points on "
+              f"{pts.device}")
+        out[n] = (bool(torch.equal(got, ref)),
+                  int((got.long() - ref.long()).abs().max()))
+    return out
+
+
+def _sync(device):
+    import torch
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def sharded_rows(cfg, state, fn, **kw):
+    """One sharded solve on the host: poses, integers, cost, seconds and
+    (over a group) the collectives it ran."""
+    from slide_slam_tpu_torch.factorgraph import solver
+    _sync(state.poses.device)
+    t, t0 = _traffic(), time.perf_counter()
+    solved = fn(state, cfg, **kw)
+    _sync(state.poses.device)
+    seconds, t = time.perf_counter() - t0, _traffic() - t
+    return dict(poses=solved.poses.cpu().numpy(), ints=_int_state(solved),
+                cost=float(solver.cost(solved, cfg.noise.cylinder,
+                                       cfg.noise.bearing)),
+                seconds=seconds, **_traffic_dict(t))
+
+
+def multicard_rank(sharded_state, device="cuda"):
+    """One rank's work of multicard:team on its card (the group formed by
+    multiprocess.launch); returns host rows. `device="cpu"` rehearses it
+    over gloo."""
+    import torch
+    import torch.distributed as dist
+    from slide_slam_tpu_torch import convert
+    from slide_slam_tpu_torch.frontend import clustering
+    from slide_slam_tpu_torch.parallel import distributed_ba as dba
+    from slide_slam_tpu_torch.parallel import multiprocess as mp
+    from slide_slam_tpu_torch.parallel import team_mission as tm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(1)
+    out = dict(rank=dist.get_rank(), world=dist.get_world_size(),
+               backend=dist.get_backend(),
+               card=torch.cuda.current_device() if device == "cuda" else -1)
+    clustering.launch_dbscan.launches = 0
+    t = _traffic()
+    res = tm.run_team_mission(tm.scale_config(MISSION_ROBOTS), MISSION_STEPS,
+                              device)
+    out["mission"] = mission_rows(res)
+    out["mission"]["traffic"] = _traffic_dict(_traffic() - t)
+    t = _traffic()
+    poses, counts, dt = mp.run_spmd_mission_step(team_step_config(),
+                                                 TEAM_STEP_STEPS, device)
+    out["team_step"] = dict(poses=poses, counts=counts, step_s=dt,
+                            **_traffic_dict(_traffic() - t,
+                                            TEAM_STEP_STEPS + 1))
+    out["team_launches"] = clustering.launch_dbscan.launches
+    base, state_np = sharded_state
+    state = convert.state_from_numpy(state_np, device=device)
+    t0 = time.perf_counter()
+    dba.shard_state(state, out["world"])
+    out["shard_state_s"] = time.perf_counter() - t0
+    for name, cfg, fn in sharded_configs(base):
+        out[name] = sharded_rows(cfg, state, fn, group=dist.group.WORLD)
+    clustering.launch_dbscan.launches = 0
+    out["dbscan"] = dbscan_check(device)
+    out["check_launches"] = clustering.launch_dbscan.launches
+    return out
+
+
+def folded_gap(a, b, counts, P):
+    """Largest |a - b| over the folded pose slots of every replica and
+    chain (the JAX dry run's measure): a, b [R, R * P, 7]."""
+    gap = 0.0
+    for r in range(counts.shape[0]):
+        for q in range(counts.shape[1]):
+            sl = slice(q * P, q * P + int(counts[r, q]))
+            gap = max(gap, float(np.abs(a[r, sl] - b[r, sl]).max(
+                initial=0.0)))
+    return gap
+
+
+def phase_multicard(device="cuda"):
+    """multicard:team (see the notes above MULTICARD_MAX_CARDS). Gates: the
+    ranks' group is NCCL, one rank a card; the discovery mission finds >= 1
+    TF and the same (owner, peer) pairs as one process, pose and landmark
+    counts identical, every replica with a map, folded poses within
+    MULTICARD_POSE_TOL; the team step's counts identical and poses within
+    it; each sharded solve within SHARDED_POSE_TOL and SHARDED_COST_RTOL of
+    the local solve on card 0, integers identical, the local solve moving
+    the poses > 10 x SHARDED_POSE_TOL; DBSCAN labels equal to the plain
+    version's on every rank's card and on every card from this process;
+    no DBSCAN launch on the team path. `device="cpu"` rehearses the phase
+    over a two-process gloo group (no gate on the backend)."""
+    import torch
+    from slide_slam_tpu_torch import convert
+    from slide_slam_tpu_torch.frontend import clustering
+    from slide_slam_tpu_torch.parallel import multiprocess as mp
+    from slide_slam_tpu_torch.parallel import team_mission as tm
+    from slide_slam_tpu_torch.runtime import engine
+    card = device == "cuda"
+    cards = torch.cuda.device_count() if card else 2
+    world = max(w for w in (1, 2, 4) if w <= min(cards, MULTICARD_MAX_CARDS))
+    base, start = sharded_check_state("cpu")
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mp.launch(multicard_rank, world,
+                      args=((base, convert.state_to_numpy(start)), device),
+                      device=device, timeout_s=MULTICARD_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    if card:
+        check([r["backend"] for r in ranks] == ["nccl"] * world,
+              f"backends {[r['backend'] for r in ranks]}, not NCCL")
+        check(sorted(r["card"] for r in ranks) == list(range(world)),
+              f"ranks on cards {[r['card'] for r in ranks]}")
+        torch.cuda.set_device(0)
+
+    # the same work in this process (on card 0)
+    clustering.launch_dbscan.launches = 0
+    cfg = tm.scale_config(MISSION_ROBOTS)
+    ones = [mission_rows(tm.run_team_mission(cfg, MISSION_STEPS, device))
+            for _ in range(2)]
+    team_1p = [mp.run_spmd_mission_step(team_step_config(), TEAM_STEP_STEPS,
+                                        device) for _ in range(2)]
+    team_launches = clustering.launch_dbscan.launches + sum(
+        r["team_launches"] for r in ranks)
+    check(team_launches == 0, f"the team path launched the DBSCAN kernel "
+          f"{team_launches} times")
+    P = cfg.capacity.max_poses_per_robot
+    one = ones[0]
+    mission = {k: np.concatenate([r["mission"][k] for r in ranks])
+               for k in ("poses", "counts", "cyl", "tf_valid")}
+    found = sorted(p for r in ranks for p in r["mission"]["found"])
+    check(len(found) >= 1, "no inter-robot TF discovered by SlideMatch")
+    check(found == sorted(one["found"]),
+          f"TFs found {found}, one process {sorted(one['found'])}")
+    check(sorted(ones[1]["found"]) == sorted(one["found"]),
+          "two one-process runs found other TFs")
+    for k in ("counts", "cyl", "tf_valid"):
+        check(np.array_equal(mission[k], one[k]),
+              f"mission {k} {mission[k].tolist()} != one process "
+              f"{one[k].tolist()}")
+    check((one["counts"].diagonal() == MISSION_STEPS).all()
+          and (mission["cyl"] > 0).all(), f"mission counts "
+          f"{one['counts'].tolist()}, cylinders {mission['cyl'].tolist()}")
+    mission_gap = folded_gap(mission["poses"], one["poses"], one["counts"], P)
+    mission_spread = folded_gap(ones[1]["poses"], one["poses"],
+                                one["counts"], P)
+    team = {k: np.concatenate([r["team_step"][k] for r in ranks])
+            for k in ("poses", "counts")}
+    check(np.array_equal(team["counts"], team_1p[0][1]),
+          f"team step counts {team['counts'].tolist()} != one process")
+    check((team["counts"] == TEAM_STEP_STEPS + 1).all(),
+          f"team step counts {team['counts'].tolist()}")
+    team_gap = float(np.abs(team["poses"] - team_1p[0][0]).max())
+    team_spread = float(np.abs(team_1p[1][0] - team_1p[0][0]).max())
+
+    start0 = convert.state_from_numpy(convert.state_to_numpy(start),
+                                      device=device)
+    solves = {}
+    for name, scfg, fn in sharded_configs(base):
+        local = sharded_rows(scfg, start0, lambda s, c: engine.solve_full(
+            c, s))
+        moved = pose_gap(start0.poses.cpu(), torch.as_tensor(local["poses"]))
+        gaps = [pose_gap(torch.as_tensor(r[name]["poses"]),
+                         torch.as_tensor(local["poses"])) for r in ranks]
+        costs = [r[name]["cost"] for r in ranks]
+        solves[name] = dict(
+            local_s=local["seconds"],
+            sharded_s=[r[name]["seconds"] for r in ranks],
+            local_cost=local["cost"], sharded_cost=costs, gap_m=gaps,
+            local_move_m=moved, **{k: ranks[0][name][k] for k in (
+                "all_reduces", "all_reduce_bytes", "all_gathers",
+                "all_gather_bytes")})
+        check(moved > 10 * SHARDED_POSE_TOL,
+              f"{name}: the local solve moved the poses only {moved}")
+        check(max(gaps) <= SHARDED_POSE_TOL,
+              f"{name}: poses {max(gaps)} from the local solve's")
+        check(all(abs(c - local["cost"]) <= SHARDED_COST_RTOL * local["cost"]
+                  for c in costs), f"{name}: costs {costs} against the local "
+              f"solve's {local['cost']}")
+        for r in ranks:
+            for f, a in r[name]["ints"].items():
+                check(np.array_equal(a, local["ints"][f]),
+                      f"{name}: {f} of rank {r['rank']} differs from the "
+                      "local solve's")
+
+    check_launches = sum(r["check_launches"] for r in ranks)
+    check(check_launches == (world * len(MULTICARD_DBSCAN_SIZES) if card
+                             else 0),
+          f"{check_launches} DBSCAN launches in the ranks' checks on {world} "
+          "ranks")
+    dbscan = {f"rank{r['rank']}": r["dbscan"] for r in ranks}
+    for k in range(cards if card else 0):  # card 0 current, tensors on k
+        dbscan[f"cuda:{k}_from_card0"] = dbscan_check(f"cuda:{k}")
+        check(torch.cuda.current_device() == 0, "the current card moved")
+    bad = {w: d for w, d in dbscan.items()
+           if not all(eq for eq, _ in d.values())}
+    check(not bad, f"DBSCAN labels differ from the plain version: {bad}")
+
+    m = ranks[0]["mission"]
+    stats = dict(
+        world=world, cards=cards, launch_s=launch_s,
+        mission_step_s=float(np.mean(m["step_s"][1:])),
+        mission_first_step_s=m["step_s"][0],
+        discovery_s=m["discovery_s"],
+        mission_step_s_one_process=float(np.mean(ones[0]["step_s"][1:])),
+        discovery_s_one_process=ones[0]["discovery_s"],
+        tfs_found=found, mission_traffic=m["traffic"],
+        team_step_s=ranks[0]["team_step"]["step_s"],
+        team_step_s_one_process=team_1p[0][2],
+        team_step_collectives={k: ranks[0]["team_step"][k] for k in (
+            "all_gathers", "all_gather_bytes", "all_reduces",
+            "all_reduce_bytes")},
+        shard_state_s=ranks[0]["shard_state_s"], solves=solves,
+        mission_gap=mission_gap, mission_spread_one_process=mission_spread,
+        team_gap=team_gap, team_spread_one_process=team_spread,
+        pose_tol=MULTICARD_POSE_TOL, dbscan_launches=team_launches,
+        dbscan_check_launches=check_launches, dbscan=dbscan)
+    print("[multicard:team] " + json.dumps(stats))
+    check(mission_gap <= MULTICARD_POSE_TOL,
+          f"mission poses {mission_gap} from one process's (B = "
+          f"{MULTICARD_POSE_TOL}; one process against itself "
+          f"{mission_spread})")
+    check(team_gap <= MULTICARD_POSE_TOL,
+          f"team step poses {team_gap} from one process's (one process "
+          f"against itself {team_spread})")
+    return stats
 
 
 def phase_native_dsd(maps):
@@ -2740,6 +3077,7 @@ def main():
         team = run("slice:spmd_team", phase_spmd_team)
         rgbd_team = run("slice:indoor_rgbd_team", phase_indoor_rgbd_team)
         run("card_vs_cpu:indoor_rgbd", phase_card_vs_cpu_rgbd)
+        multicard = run("multicard:team", phase_multicard)
     except Exception as e:  # every failed phase fails the run
         import traceback
         traceback.print_exc()
@@ -2758,7 +3096,11 @@ def main():
         "unified_solo": unified[0]["dbscan_launches"],
         "spmd_team": team["dbscan_launches"],
         "reference_oracle": oracle["dbscan_launches"],
-        "bag_mission": bag["dbscan_launches"]}
+        "bag_mission": bag["dbscan_launches"],
+        "multicard": multicard["dbscan_launches"]}
+    # the ranks' DBSCAN checks hold the kernel to its plain version on each
+    # rank's card: outside the paths' counts
+    check_launches = {"multicard": multicard["dbscan_check_launches"]}
     timing = lambda r: {k: r[k] for k in ("ms", "floor_ms", "plain_ms",
                                           "bound_ms", "bound_by")}
     print(json.dumps({"kernels": [{
@@ -2767,6 +3109,7 @@ def main():
         "replaces": "slide_slam_tpu/frontend/clustering_pallas.py:29",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
+        "check_launches": check_launches,
         "max_abs_err": max(kern["max_abs_err"], urb["max_abs_err"],
                            kitti["max_abs_err"]),
         "ms": kern["ms"], "floor_ms": kern["floor_ms"],

@@ -86,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -1408,19 +1410,31 @@ dbscan_big_kernel(const float* __restrict__ pts,
 template <typename S>
 __global__ void __launch_bounds__(kThreads, 1) empty_kernel(S*) {}
 
-// Shared memory and the non-portable cluster sizes, set once per kernel.
+// A kernel's attributes belong to the context of the device that was
+// current when they were set, so each is set (and each choice made) once
+// per kernel and device ordinal, for the device current at the call.
+constexpr int kMaxDevices = 64;
+
+// Shared memory and the non-portable cluster sizes, set once per kernel on
+// each device.
 template <typename S, typename... KArgs>
 cudaError_t prepare(void (*kernel)(KArgs...)) {
-  static cudaError_t err = [kernel] {
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t err[kMaxDevices];
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return got;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [kernel, dev] {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(sizeof(S)));
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    return e;
-  }();
-  return err;
+    err[dev] = e;
+  });
+  return err[dev];
 }
 
 cudaLaunchConfig_t launch_config(int sets, int cluster, size_t smem,
@@ -1440,22 +1454,28 @@ cudaLaunchConfig_t launch_config(int sets, int cluster, size_t smem,
   return cfg;
 }
 
-// The cluster size that `cluster = 0` stands for: 16 CTAs where the card
-// can place a cluster that large (an H100 SXM's GPCs hold 16 or more SMs),
-// else the portable 8.
+// The cluster size that `cluster = 0` stands for on the current device: 16
+// CTAs where the card can place a cluster that large (an H100 SXM's GPCs
+// hold 16 or more SMs), else the portable 8.
 template <typename S, typename... KArgs>
 int auto_cluster(void (*kernel)(KArgs...)) {
-  static const int chosen = [kernel] {
-    if (prepare<S>(kernel) != cudaSuccess) return 8;
+  static std::once_flag once[kMaxDevices];
+  static int chosen[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 8;   // prepare, on the launch that follows, returns the error
+  std::call_once(once[dev], [kernel, dev] {
+    chosen[dev] = 8;
+    if (prepare<S>(kernel) != cudaSuccess) return;
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg =
         launch_config(1, 16, sizeof(S), nullptr, &attr);
     int fits = 0;
     const cudaError_t e = cudaOccupancyMaxActiveClusters(&fits, kernel, &cfg);
     if (e != cudaSuccess) cudaGetLastError();   // not sticky: clear it
-    return e == cudaSuccess && fits >= 1 ? 16 : 8;
-  }();
-  return chosen;
+    if (e == cudaSuccess && fits >= 1) chosen[dev] = 16;
+  });
+  return chosen[dev];
 }
 
 // Launch `kernel`, whose shared memory is S, as `sets` clusters of
@@ -1481,8 +1501,10 @@ bool bad_shape(int sets, int n, int cluster) {
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. Each launches on `stream` and
-// returns the launch's CUDA error (0 on success); none synchronises.
+// Plain C entry points, loaded with ctypes. Each launches on `stream`, a
+// stream of the current device (the caller makes the tensors' card
+// current), and returns the launch's CUDA error (0 on success); none
+// synchronises.
 //
 // points [sets, n, 3] f32, valid [sets, n] u8, params [sets, 4] f32 =
 // (eps_1^2, min_samples_1, eps_2^2, min_samples_2), labels [sets, n] i32;

@@ -196,9 +196,9 @@ def launch_dbscan(points: torch.Tensor, valid: torch.Tensor,
     for every set and stage, `cluster` CTAs of a thread-block cluster per set
     (0: 16 where the card can place a cluster that large, else 8; above 1024
     points at least N / ROWS_PER_CTA). Above 1024 points per set the kernel
-    works in a scratch buffer allocated here. Launches on the current stream
-    without synchronising; each launch adds one to
-    `launch_dbscan.launches`."""
+    works in a scratch buffer allocated here. Launches on the tensors' card
+    (made current for the call) and its current stream without
+    synchronising; each launch adds one to `launch_dbscan.launches`."""
     _check(points, valid, params, stages, int(cluster))
     C, n, _ = points.shape
     lib = _lib()
@@ -206,12 +206,13 @@ def launch_dbscan(points: torch.Tensor, valid: torch.Tensor,
     words = lib.dbscan_scratch_words(n)
     scratch = (torch.empty(C * words, dtype=torch.int32, device=points.device)
                if words else None)
-    stream = torch.cuda.current_stream(points.device).cuda_stream
-    err = lib.dbscan_two_stage_launch(
-        points.data_ptr(), valid.view(torch.uint8).data_ptr(),
-        params.data_ptr(), labels.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), C, n, stages,
-        int(max_iters), int(cluster), stream)
+    with torch.cuda.device(points.device):
+        err = lib.dbscan_two_stage_launch(
+            points.data_ptr(), valid.view(torch.uint8).data_ptr(),
+            params.data_ptr(), labels.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), C, n, stages,
+            int(max_iters), int(cluster),
+            torch.cuda.current_stream(points.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dbscan kernel launch failed: CUDA error {err}")
     launch_dbscan.launches += 1
@@ -223,8 +224,8 @@ launch_dbscan.launches = 0
 
 def launch_empty(sets: int, cluster: int = 0, n: int = 1024) -> None:
     """An empty kernel of the DBSCAN kernel's launch shape at n points per
-    set (sets clusters of `cluster` CTAs, its shared memory): the launch
-    floor."""
+    set (sets clusters of `cluster` CTAs, its shared memory) on the current
+    card: the launch floor."""
     err = _lib().dbscan_empty_launch(sets, int(n), int(cluster),
                                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -232,8 +233,8 @@ def launch_empty(sets: int, cluster: int = 0, n: int = 1024) -> None:
 
 
 def auto_cluster_size(n: int = 1024) -> int:
-    """The CTAs per set that `cluster=0` launches with on this card at n
-    points per set."""
+    """The CTAs per set that `cluster=0` launches with on the current card
+    at n points per set."""
     return _lib().dbscan_auto_cluster(int(n))
 
 

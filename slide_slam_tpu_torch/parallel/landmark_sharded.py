@@ -151,13 +151,11 @@ def landmark_sharded_solve(state: GraphState, cfg: SlamConfig,
             shard_state_by_landmark(state, n_shards))
         return unshard_state_by_landmark(solved, state)
     import torch.distributed as dist
+    from .multiprocess import local_batch_to_global
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     local = GraphState(*(f[rank] for f in shard_state_by_landmark(state, n)))
     solved = build_landmark_sharded_solve(cfg, group)(local)
-    gathered = []
-    for f in solved:     # every shard's landmark block (bools as uint8)
-        g = f.to(torch.uint8) if f.dtype == torch.bool else f.contiguous()
-        bufs = [torch.empty_like(g) for _ in range(n)]
-        dist.all_gather(bufs, g, group=group)
-        gathered.append(torch.stack(bufs).to(f.dtype))
-    return unshard_state_by_landmark(GraphState(*gathered), state)
+    # every shard's landmark block, stacked in rank order
+    gathered = GraphState(*(local_batch_to_global(f[None], group)
+                            for f in solved))
+    return unshard_state_by_landmark(gathered, state)

@@ -66,11 +66,18 @@ def run_in_lockstep(fn: Callable, n: int) -> list:
 
 def all_reduce_sum(group=None) -> Callable:
     """reduce(x): the sum of x over the processes of a torch.distributed
-    group (every process gets the same tensor)."""
+    group (every process gets the same tensor). Each all_reduce adds one to
+    `all_reduce_sum.calls` and the tensor's bytes to `.bytes`."""
     import torch.distributed as dist
 
     def reduce(x: torch.Tensor) -> torch.Tensor:
         y = x.reshape(-1).clone()
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        all_reduce_sum.calls += 1
+        all_reduce_sum.bytes += y.numel() * y.element_size()
         return y.reshape(x.shape)
     return reduce
+
+
+all_reduce_sum.calls = 0
+all_reduce_sum.bytes = 0

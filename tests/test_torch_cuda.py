@@ -555,3 +555,64 @@ def test_bag_converted_on_card_machine_equals_log(tmp_path):
             node.process_keyframe(kf.stamp, kf.odom_pose, vars(kf))
         counts.append(node.landmark_counts())
     assert counts[0] == counts[1] and counts[0]["cylinders"] > 0
+
+
+@pytest.mark.cuda
+def test_dbscan_on_every_card_from_one_process():
+    """The kernel on chip_smoke's kitti_sets at 1024 and 4096 points (the
+    shared-memory and the sparse path) on every card in turn, from one
+    process whose current card stays 0: labels on the points' card, exactly
+    equal to the plain version's there; each card picks its own cluster
+    size (the kernel's attributes are set per card)."""
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 or more cards: the launch on a card that is not "
+                    "the current one")
+    import chip_smoke
+    torch.cuda.set_device(0)
+    for k in range(torch.cuda.device_count()):
+        for n in (1024, 4096):
+            args = [torch.as_tensor(a, device=f"cuda:{k}")
+                    for a in chip_smoke.kitti_sets(n)]
+            before = clustering.launch_dbscan.launches
+            got = clustering.two_stage_cluster_batch(*args)
+            assert clustering.launch_dbscan.launches == before + 1
+            assert got.device == args[0].device
+            with torch.cuda.device(k):
+                assert clustering.auto_cluster_size(n) in (8, 16)
+            ref = clustering.two_stage_cluster_reference(*args)
+            torch.cuda.synchronize(k)
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          ref.cpu().numpy())
+            assert torch.cuda.current_device() == 0
+
+
+def _nccl_team_step_rank(cfg, n_steps):
+    import torch.distributed as dist
+    from slide_slam_tpu_torch.parallel import multiprocess
+    poses, counts, _ = multiprocess.run_spmd_mission_step(cfg, n_steps)
+    return dict(backend=dist.get_backend(), card=torch.cuda.current_device(),
+                poses=poses, counts=counts,
+                gathers=multiprocess.local_batch_to_global.calls)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_team_step_equals_one_process():
+    """multiprocess.run_spmd_mission_step in a one-rank NCCL group started
+    by multiprocess.launch (the packets and TF tables all-gathered through
+    NCCL) against the same step in this process without a group, on card
+    0: counts identical, poses within chip_smoke.MULTICARD_POSE_TOL (the
+    card's run-to-run spread, PERF.md §6)."""
+    _card()
+    import chip_smoke
+    from slide_slam_tpu_torch.parallel import multiprocess
+    cfg = chip_smoke.team_step_config()
+    out, = multiprocess.launch(_nccl_team_step_rank, 1, args=(cfg, 3),
+                               device="cuda", timeout_s=300)
+    assert out["backend"] == "nccl" and out["card"] == 0
+    assert out["gathers"] == 17 * 4     # a step gathers 17 fields
+    poses, counts, _ = multiprocess.run_spmd_mission_step(cfg, 3)
+    np.testing.assert_array_equal(out["counts"], counts)
+    assert (counts == 4).all()
+    np.testing.assert_allclose(out["poses"], poses, rtol=0,
+                               atol=chip_smoke.MULTICARD_POSE_TOL)

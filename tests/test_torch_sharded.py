@@ -190,7 +190,8 @@ from slide_slam_tpu_torch.parallel import distributed_ba as dba
 from slide_slam_tpu_torch.parallel import landmark_sharded as ls
 from slide_slam_tpu_torch.parallel import multiprocess as mp
 
-dist = mp.initialize(mp.ProcessSpec({init!r}, world_size=2, rank={rank}))
+dist = mp.initialize(mp.ProcessSpec({init!r}, world_size=2, rank={rank},
+                                    device="cpu"))
 cfg = SlamConfig(number_of_robots=2, capacity=CapacityConfig(**{cap!r}))
 with np.load({path!r}) as z:
     state = convert.state_from_numpy(dict(z), device="cpu")
