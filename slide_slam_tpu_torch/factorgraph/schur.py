@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..runtime.profiling import host_read, phase
 from . import solver
 from .graph import GraphState
 
@@ -233,26 +234,33 @@ def solve(s: GraphState, *, cyl_sigma: float, bearing_sigma: float,
     NK = s.cub_pose.shape[0]
     scales = torch.tensor([1.0, 0.5, 0.25], dtype=s.poses.dtype,
                           device=s.poses.device)
-    for _ in range(int(outer_iters)):
-        op = build_operands(s, cyl_sigma, bearing_sigma, lam, block_precond,
-                            reduce)
-        dp, dl = solve_reduced(op, lam, pcg_iters, pcg_tol, step_tol, reduce)
-        dp = solver.clamp_rows(_finite(dp))
-        dl = solver.clamp_rows(_finite(dl))
-        dx = solver.Tangent(pose=dp, cyl=dl[:NC, :7], cub=dl[NC:NC + NK],
-                            pt=dl[NC + NK:, :3])
-        if not line_search:
-            s = solver.retract_state(s, dx)
-            continue
-        c0 = solver.cost(s, cyl_sigma, bearing_sigma, reduce)
-        costs = torch.stack([
-            solver.cost(solver.retract_state(s, solver.tree_scale(a, dx)),
+    with phase("solve"):
+        for _ in range(int(outer_iters)):
+            with phase("solve.build"):
+                op = build_operands(s, cyl_sigma, bearing_sigma, lam,
+                                    block_precond, reduce)
+            dp, dl = solve_reduced(op, lam, pcg_iters, pcg_tol, step_tol,
+                                   reduce)
+            dp = solver.clamp_rows(_finite(dp))
+            dl = solver.clamp_rows(_finite(dl))
+            dx = solver.Tangent(pose=dp, cyl=dl[:NC, :7], cub=dl[NC:NC + NK],
+                                pt=dl[NC + NK:, :3])
+            if not line_search:
+                s = solver.retract_state(s, dx)
+                continue
+            with phase("solve.line_search"):
+                c0 = solver.cost(s, cyl_sigma, bearing_sigma, reduce)
+                costs = torch.stack([
+                    solver.cost(
+                        solver.retract_state(s, solver.tree_scale(a, dx)),
                         cyl_sigma, bearing_sigma, reduce) for a in scales])
-        best = torch.argmin(costs)
-        accept = costs[best] < c0
-        alpha = torch.where(accept, scales[best], torch.zeros_like(c0))
-        improved = (c0 - costs[best]) > rel_tol * (c0 + 1e-9)
-        s = solver.retract_state(s, solver.tree_scale(alpha, dx))
-        if not bool(accept & improved):
-            break
+                best = torch.argmin(costs)
+                accept = costs[best] < c0
+                alpha = torch.where(accept, scales[best], torch.zeros_like(c0))
+                improved = (c0 - costs[best]) > rel_tol * (c0 + 1e-9)
+                s = solver.retract_state(s, solver.tree_scale(alpha, dx))
+                with host_read("accept"):
+                    more = bool(accept & improved)
+            if not more:
+                break
     return s

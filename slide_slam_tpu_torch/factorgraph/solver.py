@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..geometry import jacobians, se3
+from ..runtime.profiling import annotate, host_read, phase
 from . import residuals as res
 from .graph import GraphState
 
@@ -261,49 +262,57 @@ def pcg(hv_fn, b: torch.Tensor, precond_apply, max_iters: int, tol: float,
     residual stop `rz <= tol^2 rz0`, at most `max_iters` iterations. The
     stop test runs on the device; the host reads it once per PCG_BLOCK
     iterations."""
-    x = torch.zeros_like(b)
-    r = b
-    z = precond_apply(r)
-    p = z
-    rz = _vdot(r, z)
-    tol_t = torch.tensor(tol, dtype=b.dtype, device=b.device)
-    thresh = tol_t * tol_t * torch.clamp(rz, min=1e-30)
-    k = torch.zeros((), dtype=torch.int32, device=b.device)
-    small = torch.zeros((), dtype=torch.int32, device=b.device)
-    zero = torch.zeros((), dtype=b.dtype, device=b.device)
-    # squared in float32, as the JAX version squares its f32 step_tol
-    step_tol_sq = float(np.float32(step_tol) * np.float32(step_tol))
-    done_iters = 0
-    while done_iters < max_iters:
-        for _ in range(min(PCG_BLOCK, max_iters - done_iters)):
-            active = (k < max_iters) & (rz > thresh)
-            hp = hv_fn(p)
-            php = _vdot(p, hp)
-            pp = _vdot(p, p)
-            curv_ok = php > 1e-12 * pp
-            alpha = torch.where(curv_ok, rz / torch.clamp(php, min=1e-30), zero)
-            step_sq = (alpha * alpha) * pp
-            x_n = x + alpha * p
-            r_n = r - alpha * hp
-            z_n = precond_apply(r_n)
-            rz_new = _vdot(r_n, z_n)
-            beta = torch.where(curv_ok, rz_new / torch.clamp(rz, min=1e-30),
-                               zero)
-            p_n = z_n + beta * p
-            step_small = (step_tol > 0.0) & (step_sq < step_tol_sq)
-            small_n = torch.where(step_small, small + 1, 0)
-            stop = (~curv_ok) | (small_n >= 3)
-            rz_n = torch.where(stop, zero, rz_new)
-            x = torch.where(active, x_n, x)
-            r = torch.where(active, r_n, r)
-            z = torch.where(active, z_n, z)
-            p = torch.where(active, p_n, p)
-            rz = torch.where(active, rz_n, rz)
-            small = torch.where(active, small_n, small)
-            k = k + active.to(torch.int32)
-            done_iters += 1
-        if not bool((k < max_iters) & (rz > thresh)):
-            break
+    with phase("solve.pcg"):
+        x = torch.zeros_like(b)
+        r = b
+        z = precond_apply(r)
+        p = z
+        rz = _vdot(r, z)
+        tol_t = torch.tensor(tol, dtype=b.dtype, device=b.device)
+        thresh = tol_t * tol_t * torch.clamp(rz, min=1e-30)
+        k = torch.zeros((), dtype=torch.int32, device=b.device)
+        small = torch.zeros((), dtype=torch.int32, device=b.device)
+        zero = torch.zeros((), dtype=b.dtype, device=b.device)
+        # squared in float32, as the JAX version squares its f32 step_tol
+        step_tol_sq = float(np.float32(step_tol) * np.float32(step_tol))
+        done_iters = 0
+        while done_iters < max_iters:
+            with phase("pcg.block"):
+                for _ in range(min(PCG_BLOCK, max_iters - done_iters)):
+                    active = (k < max_iters) & (rz > thresh)
+                    hp = hv_fn(p)
+                    php = _vdot(p, hp)
+                    pp = _vdot(p, p)
+                    curv_ok = php > 1e-12 * pp
+                    alpha = torch.where(curv_ok,
+                                        rz / torch.clamp(php, min=1e-30), zero)
+                    step_sq = (alpha * alpha) * pp
+                    x_n = x + alpha * p
+                    r_n = r - alpha * hp
+                    z_n = precond_apply(r_n)
+                    rz_new = _vdot(r_n, z_n)
+                    beta = torch.where(curv_ok,
+                                       rz_new / torch.clamp(rz, min=1e-30),
+                                       zero)
+                    p_n = z_n + beta * p
+                    step_small = (step_tol > 0.0) & (step_sq < step_tol_sq)
+                    small_n = torch.where(step_small, small + 1, 0)
+                    stop = (~curv_ok) | (small_n >= 3)
+                    rz_n = torch.where(stop, zero, rz_new)
+                    x = torch.where(active, x_n, x)
+                    r = torch.where(active, r_n, r)
+                    z = torch.where(active, z_n, z)
+                    p = torch.where(active, p_n, p)
+                    rz = torch.where(active, rz_n, rz)
+                    small = torch.where(active, small_n, small)
+                    k = k + active.to(torch.int32)
+                    done_iters += 1
+                with host_read("pcg_stop"):
+                    more = bool((k < max_iters) & (rz > thresh))
+            if not more:
+                break
+        # the device counter itself: read back only when spans are exported
+        annotate(pcg_iters=k)
     return x
 
 
@@ -435,35 +444,40 @@ def solve(s: GraphState, *, cyl_sigma: float, bearing_sigma: float,
     idx = pack_indices(s)
     scales = torch.tensor([1.0, 0.5, 0.25], dtype=s.poses.dtype,
                           device=s.poses.device)
-    for _ in range(int(outer_iters)):
-        lin = linearize(s, cyl_sigma, bearing_sigma)
-        packed = pack_linearization(s, lin, idx)
-        g = gradient_packed(s, packed, reduce)
-        diag = diagonal_packed(s, packed, reduce)
-        if block_precond:
-            inv_b = _block_precond_inverse(
-                block_diagonal_packed(s, packed, reduce), lam)
-            precond = lambda r: torch.einsum("nij,nj->ni", inv_b, r)
-        else:
-            scalar = 1.0 / (diag * (1.0 + lam) + 1e-8)
-            precond = lambda r: r * scalar
-        dx = pcg(lambda x: hessian_vec_packed(s, packed, x, lam, diag,
-                                              reduce),
-                 -g, precond, pcg_iters, pcg_tol, step_tol)
-        dx = x_to_tangent(s, clamp_rows(torch.where(
-            torch.isfinite(dx), dx, torch.zeros_like(dx))))
-        if not line_search:
-            s = retract_state(s, dx)
-            continue
-        c0 = reduce(0.5 * torch.sum(packed.r ** 2))
-        costs = torch.stack([
-            cost(retract_state(s, tree_scale(a, dx)), cyl_sigma,
-                 bearing_sigma, reduce) for a in scales])
-        best = torch.argmin(costs)
-        accept = costs[best] < c0
-        alpha = torch.where(accept, scales[best], torch.zeros_like(c0))
-        improved = (c0 - costs[best]) > rel_tol * (c0 + 1e-9)
-        s = retract_state(s, tree_scale(alpha, dx))
-        if not bool(accept & improved):
-            break
+    with phase("solve"):
+        for _ in range(int(outer_iters)):
+            with phase("solve.build"):
+                lin = linearize(s, cyl_sigma, bearing_sigma)
+                packed = pack_linearization(s, lin, idx)
+                g = gradient_packed(s, packed, reduce)
+                diag = diagonal_packed(s, packed, reduce)
+                if block_precond:
+                    inv_b = _block_precond_inverse(
+                        block_diagonal_packed(s, packed, reduce), lam)
+                    precond = lambda r: torch.einsum("nij,nj->ni", inv_b, r)
+                else:
+                    scalar = 1.0 / (diag * (1.0 + lam) + 1e-8)
+                    precond = lambda r: r * scalar
+            dx = pcg(lambda x: hessian_vec_packed(s, packed, x, lam, diag,
+                                                  reduce),
+                     -g, precond, pcg_iters, pcg_tol, step_tol)
+            dx = x_to_tangent(s, clamp_rows(torch.where(
+                torch.isfinite(dx), dx, torch.zeros_like(dx))))
+            if not line_search:
+                s = retract_state(s, dx)
+                continue
+            with phase("solve.line_search"):
+                c0 = reduce(0.5 * torch.sum(packed.r ** 2))
+                costs = torch.stack([
+                    cost(retract_state(s, tree_scale(a, dx)), cyl_sigma,
+                         bearing_sigma, reduce) for a in scales])
+                best = torch.argmin(costs)
+                accept = costs[best] < c0
+                alpha = torch.where(accept, scales[best], torch.zeros_like(c0))
+                improved = (c0 - costs[best]) > rel_tol * (c0 + 1e-9)
+                s = retract_state(s, tree_scale(alpha, dx))
+                with host_read("accept"):
+                    more = bool(accept & improved)
+            if not more:
+                break
     return s

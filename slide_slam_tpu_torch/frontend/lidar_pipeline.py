@@ -19,6 +19,7 @@ import torch
 
 from ..geometry import se3np
 from ..io.synthetic import nearest_object_label
+from ..runtime.profiling import phase, to_host
 from . import range_projection
 from .pipeline import PipelineConfig, ProcessCloudPipeline
 
@@ -54,22 +55,29 @@ class LidarFrontend:
         if stamp - self._last_stamp < self.cfg.desired_period:
             return None
         self._last_stamp = stamp
+        # keyed as robot 0's keyframe of the same stamp: no LiDAR frontend
+        # runs for another robot
+        with phase("scan", key=(0, float(stamp))):
+            return self._process(points_body, remission, sensor_pose7)
+
+    def _process(self, points_body, remission, sensor_pose7):
         c = self.cfg
-        pts_np = np.asarray(points_body, np.float32)
-        pts = torch.as_tensor(pts_np, device=self.device)
-        rem = torch.as_tensor(np.asarray(remission, np.float32),
-                              device=self.device)
-        valid = torch.ones((len(pts_np),), dtype=torch.bool,
-                           device=self.device)
-        ri = range_projection.project(
-            pts, rem, valid, height=c.height, width=c.width,
-            fov_up_deg=c.fov_up_deg, fov_down_deg=c.fov_down_deg)
-        model_in = torch.movedim(range_projection.make_model_input(ri)[None],
-                                 1, -1)                          # [1,H,W,5]
-        labels_img = torch.as_tensor(self.segment_fn(model_in),
-                                     device=self.device)[0]
-        point_labels = range_projection.unproject_labels(
-            ri, labels_img).cpu().numpy()
+        with phase("scan.project"):
+            pts_np = np.asarray(points_body, np.float32)
+            pts = torch.as_tensor(pts_np, device=self.device)
+            rem = torch.as_tensor(np.asarray(remission, np.float32),
+                                  device=self.device)
+            valid = torch.ones((len(pts_np),), dtype=torch.bool,
+                               device=self.device)
+            ri = range_projection.project(
+                pts, rem, valid, height=c.height, width=c.width,
+                fov_up_deg=c.fov_up_deg, fov_down_deg=c.fov_down_deg)
+            model_in = torch.movedim(                           # [1,H,W,5]
+                range_projection.make_model_input(ri)[None], 1, -1)
+            labels_img = torch.as_tensor(self.segment_fn(model_in),
+                                         device=self.device)[0]
+            point_labels = to_host(range_projection.unproject_labels(
+                ri, labels_img), "point_labels")
         world_pts = se3np.apply(np.asarray(sensor_pose7, np.float32), pts_np)
         return self.pipeline.process_scan(world_pts, point_labels,
                                           sensor_pose7)

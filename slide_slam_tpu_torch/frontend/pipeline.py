@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..geometry import se3
+from ..runtime.profiling import phase, to_host
 from . import clustering, cuboid_fit, cylinder_fit
 from .tracker import MultiClassTracker
 
@@ -130,15 +131,16 @@ def cluster_classes(point_sets, params, n: int, device) -> np.ndarray:
     pts = host[:n_pts].view(np.float32).reshape(C, n, 3)
     par = host[n_pts:n_pts + n_par].view(np.float32).reshape(C, 4)
     valid = host[n_pts + n_par:].view(bool).reshape(C, n)
-    for c, (p, q) in enumerate(zip(point_sets, params)):
-        pts[c], valid[c] = _pad_points(p, n)
-        par[c] = clustering.stage_params(*q)
-    buf = torch.from_numpy(host).to(device)
-    labels = clustering.two_stage_cluster_batch(
-        buf[:n_pts].view(torch.float32).view(C, n, 3),
-        buf[n_pts + n_par:].view(torch.bool).view(C, n),
-        buf[n_pts:n_pts + n_par].view(torch.float32).view(C, 4))
-    return labels.cpu().numpy()
+    with phase("scan.dbscan"):
+        for c, (p, q) in enumerate(zip(point_sets, params)):
+            pts[c], valid[c] = _pad_points(p, n)
+            par[c] = clustering.stage_params(*q)
+        buf = torch.from_numpy(host).to(device)
+        labels = clustering.two_stage_cluster_batch(
+            buf[:n_pts].view(torch.float32).view(C, n, 3),
+            buf[n_pts + n_par:].view(torch.bool).view(C, n),
+            buf[n_pts:n_pts + n_par].view(torch.float32).view(C, 4))
+        return to_host(labels, "dbscan_labels")
 
 
 def fit_aged_tracks(tracker: MultiClassTracker, classes, n: int, device,
@@ -192,40 +194,43 @@ class ProcessCloudPipeline:
         semantic ids, sensor_pose7 the synced odometry pose. Returns the
         body-frame measurement dict for the backend keyframe."""
         cfg = self.cfg
-        xyz = np.asarray(xyz, np.float32)
-        point_labels = np.asarray(point_labels)
-        sensor_xyz = np.asarray(sensor_pose7, np.float32)[4:7]
-        rng_ok = np.linalg.norm(xyz - sensor_xyz, axis=1) < cfg.max_range
         obs = {k: [] for k in ("cyl_root", "cyl_ray", "cyl_radius",
                                "cyl_label", "cub_pose", "cub_scale",
                                "cub_label")}
-        ground_spec = next((c for c in cfg.classes if c.model == "ground"),
-                           None)
-        ground_pts = (xyz[rng_ok & (point_labels == ground_spec.label)]
-                      if ground_spec is not None
-                      else np.zeros((0, 3), np.float32))
-        self.class_points = {}
-        clustered = []
-        for spec in cfg.classes:
-            if spec.model == "ground":
-                continue
-            pts = xyz[rng_ok & (point_labels == spec.label)]
-            self.class_points[spec.name] = len(pts)
-            if len(pts) >= spec.min_samples_cluster:
-                clustered.append((spec, pts))
+        with phase("scan.split"):
+            xyz = np.asarray(xyz, np.float32)
+            point_labels = np.asarray(point_labels)
+            sensor_xyz = np.asarray(sensor_pose7, np.float32)[4:7]
+            rng_ok = np.linalg.norm(xyz - sensor_xyz, axis=1) < cfg.max_range
+            ground_spec = next((c for c in cfg.classes
+                                if c.model == "ground"), None)
+            ground_pts = (xyz[rng_ok & (point_labels == ground_spec.label)]
+                          if ground_spec is not None
+                          else np.zeros((0, 3), np.float32))
+            self.class_points = {}
+            clustered = []
+            for spec in cfg.classes:
+                if spec.model == "ground":
+                    continue
+                pts = xyz[rng_ok & (point_labels == spec.label)]
+                self.class_points[spec.name] = len(pts)
+                if len(pts) >= spec.min_samples_cluster:
+                    clustered.append((spec, pts))
         labels = self._cluster(clustered)
-        for (spec, pts), lab in zip(clustered, labels):
-            k = min(len(pts), cfg.max_points_per_class)
-            instances = self._instances_from_labels(pts[:k], lab[:k])
-            if not instances:
-                continue
-            if spec.model == "cuboid":
-                self._track_cuboids(spec, instances)
-            elif spec.model == "cylinder":
-                self._fit_cylinders(spec, instances, ground_pts, obs)
-        self._emit_cuboids(obs)
+        with phase("scan.fit"):
+            for (spec, pts), lab in zip(clustered, labels):
+                k = min(len(pts), cfg.max_points_per_class)
+                instances = self._instances_from_labels(pts[:k], lab[:k])
+                if not instances:
+                    continue
+                if spec.model == "cuboid":
+                    self._track_cuboids(spec, instances)
+                elif spec.model == "cylinder":
+                    self._fit_cylinders(spec, instances, ground_pts, obs)
+            self._emit_cuboids(obs)
         self.scan_idx += 1
-        return self._to_body_frame(obs, sensor_pose7)
+        with phase("scan.body_frame"):
+            return self._to_body_frame(obs, sensor_pose7)
 
     def _track_cuboids(self, spec: ClassSpec, instances):
         """Bbox seeds of every instance in one batched call, then one
@@ -237,7 +242,8 @@ class ProcessCloudPipeline:
             self._t(np.stack([p for p, _ in padded])),
             self._t(np.stack([m for _, m in padded])),
             spec.fit_cuboid_dim_thresh)
-        seeds = torch.stack([s.float() for s in seeds], dim=1).cpu().numpy()
+        seeds = to_host(torch.stack([s.float() for s in seeds], dim=1),
+                        "cuboid_seeds")
         ok = seeds[:, 4] > 0
         if ok.any():
             dets = seeds[ok, :4].astype(np.float64)
@@ -279,8 +285,8 @@ class ProcessCloudPipeline:
             pads, masks, normals, ds, breast_height=cfg.breast_height,
             radius_cutoff=cfg.radius_cutoff,
             default_radius=cfg.default_radius)
-        valid = fit.valid.cpu().numpy()
-        root, ray, radius = (a.cpu().numpy() for a in fit[:3])
+        valid = to_host(fit.valid, "cylinders")
+        root, ray, radius = (to_host(a, "cylinders") for a in fit[:3])
         for i in np.nonzero(valid)[0]:
             obs["cyl_root"].append(root[i])
             obs["cyl_ray"].append(ray[i])
@@ -296,8 +302,9 @@ class ProcessCloudPipeline:
             self.device, estimate_facing_dir=cfg.estimate_facing_dir_car)
         if not tracks:
             return
-        host = torch.cat([fit.centroid, fit.dims, fit.yaw[:, None],
-                          fit.valid[:, None].float()], dim=1).cpu().numpy()
+        host = to_host(torch.cat([fit.centroid, fit.dims, fit.yaw[:, None],
+                                  fit.valid[:, None].float()], dim=1),
+                       "cuboids")
         cen, dims, valid = host[:, :3], host[:, 3:6], host[:, 7] > 0
         yaws = host[:, 6].astype(np.float64)
         if cfg.cluster_and_fix_cuboid_orientation and valid.sum() > 2:
@@ -316,8 +323,8 @@ class ProcessCloudPipeline:
         if obs["cyl_root"]:
             roots = self._t(np.stack(obs["cyl_root"]))
             rays = self._t(np.stack(obs["cyl_ray"]))
-            out["cyl_root"] = se3.apply(inv, roots).cpu().numpy()
-            out["cyl_ray"] = se3.rotate(inv, rays).cpu().numpy()
+            out["cyl_root"] = to_host(se3.apply(inv, roots), "body_frame")
+            out["cyl_ray"] = to_host(se3.rotate(inv, rays), "body_frame")
             out["cyl_radius"] = np.asarray(obs["cyl_radius"], np.float32)
             out["cyl_label"] = np.asarray(obs["cyl_label"], np.int32)
         if obs["cub_pose"]:
@@ -328,7 +335,7 @@ class ProcessCloudPipeline:
             poses = torch.cat([torch.stack([torch.cos(half), zero, zero,
                                             torch.sin(half)], dim=-1), cen],
                               dim=-1)
-            out["cub_pose"] = se3.compose(inv, poses).cpu().numpy()
+            out["cub_pose"] = to_host(se3.compose(inv, poses), "body_frame")
             out["cub_scale"] = np.stack(obs["cub_scale"]).astype(np.float32)
             out["cub_label"] = np.asarray(obs["cub_label"], np.int32)
         return out

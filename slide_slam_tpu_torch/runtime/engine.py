@@ -29,6 +29,7 @@ from ..factorgraph.graph import GraphState
 from ..geometry import se3
 from ..objects import Cuboids, Cylinders, Ellipsoids
 from ..ops import association, distances, submap
+from .profiling import phase
 
 
 class StepOutput(NamedTuple):
@@ -287,9 +288,10 @@ def keyframe_step(cfg: SlamConfig, state: GraphState, robot_id: int,
     relOdom, or tf o keyPose for a replay), then, where `do_solve` (a host
     bool, or a 0-d tensor read once) and `enable_solve`, the incremental
     solve of the JAX `_keyframe_body`. Returns (state, StepOutput)."""
-    s, out = _keyframe_body(cfg, state, robot_id, pose_estimate, rel_odom,
-                            scan_cyl, scan_cub, scan_ell, drop_detections,
-                            odom_noise, cube_noise)
+    with phase("step.body"):
+        s, out = _keyframe_body(cfg, state, robot_id, pose_estimate,
+                                rel_odom, scan_cyl, scan_cub, scan_ell,
+                                drop_detections, odom_noise, cube_noise)
     if enable_solve and bool(do_solve):
         sc = cfg.solver
         s = _solve_budget(cfg, s, sc.incremental_outer_iterations,
@@ -329,9 +331,11 @@ def keyframe_step_fused(cfg: SlamConfig, state: GraphState, robot_id: int,
     rel = odom_and_rel[1]
     pose_est = torch.where(count_r == 0, odom_and_rel[0],
                            se3.compose(prev_pose, rel))
-    cyl, cub, ell = unpack_scan(packed_scan)
-    s, out = _keyframe_body(cfg, state, robot_id, pose_est, rel, cyl, cub,
-                            ell, drop_detections, odom_noise, cube_noise)
+    with phase("step.body"):
+        cyl, cub, ell = unpack_scan(packed_scan)
+        s, out = _keyframe_body(cfg, state, robot_id, pose_est, rel, cyl,
+                                cub, ell, drop_detections, odom_noise,
+                                cube_noise)
     outer, pcg_iters, pcg_tol = solver_budget
     s = _solve_budget(cfg, s, outer, pcg_iters, pcg_tol,
                       line_search=cfg.solver.incremental_line_search,
@@ -370,10 +374,12 @@ def replay_batch(cfg: SlamConfig, state: GraphState, robot_id: int,
     rel odom), packed_scans [N, S, 33]; the host loops over the N rows it
     is given (the JAX version's padding rows are absent)."""
     for i in range(poses_and_rels.shape[0]):
-        cyl, cub, ell = unpack_scan(packed_scans[i])
-        state, _ = _keyframe_body(
-            cfg, state, robot_id, poses_and_rels[i, 0], poses_and_rels[i, 1],
-            cyl, cub, ell, False, odom_noise, cube_noise, set_prior=False)
+        with phase("step.body"):
+            cyl, cub, ell = unpack_scan(packed_scans[i])
+            state, _ = _keyframe_body(
+                cfg, state, robot_id, poses_and_rels[i, 0],
+                poses_and_rels[i, 1], cyl, cub, ell, False, odom_noise,
+                cube_noise, set_prior=False)
     return state
 
 

@@ -46,8 +46,8 @@ from ..io.synthetic import RobotLog
 from ..place_recognition.slidematch import SlideMatchDims
 from . import engine
 from .input_manager import InputManager
-from .node import SlamNode, _to_host
-from .profiling import phase, phase_add
+from .node import SlamNode
+from .profiling import phase, phase_add, to_host
 
 
 @dataclass
@@ -269,7 +269,8 @@ class MultiRobotMission:
                 n.state = engine.solve_full(cfg, n.state)
             if self.pool is not None:
                 # fetch every node's chain on the pool, concurrently
-                futs = [(n, self.pool.submit(_to_host, n._snapshot_poses()))
+                futs = [(n, self.pool.submit(to_host, n._snapshot_poses(),
+                                             "pose_fetch"))
                         for n in self.nodes]
                 t0 = time.perf_counter()
                 chains = [(n, f.result()) for n, f in futs]

@@ -35,21 +35,17 @@ from ..place_recognition.slidegraph import SlideGraph
 from ..place_recognition.slidematch import (PlaceRecognition, SlideMatchDims,
                                             _icp_refine)
 from . import engine, scheduler
-from .profiling import maybe_block, phase, phase_add
+from .profiling import annotate, phase, phase_add, to_host
 
 
 def _np(x):
     return np.asarray(x, np.float32)
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
-
-
 def _filter_compact_rows(rows_dev: torch.Tensor) -> np.ndarray:
     """Worker-side tail of the compact-map refresh: fetch + validity filter
     (column 7 is the device-side valid flag)."""
-    rows = _to_host(rows_dev)
+    rows = to_host(rows_dev, "compact_map")
     return np.ascontiguousarray(rows[rows[:, 7] > 0.5, :7], np.float32)
 
 
@@ -179,7 +175,7 @@ class SlamNode:
         t0 = time.perf_counter()
         base = self.robot_id * self.cfg.capacity.max_poses_per_robot
         if chain_full is None:
-            chain = _to_host(self.state.poses[base:base + n])
+            chain = to_host(self.state.poses[base:base + n], "pose_fetch")
         else:
             chain = chain_full[base:base + n]
         phase_add("pose_fetch", time.perf_counter() - t0)
@@ -206,7 +202,8 @@ class SlamNode:
         if self._pose_future is None and self.key_poses:
             snap = self._snapshot_poses()
             self._pose_future = (len(self.key_poses),
-                                 self.pool.submit(_to_host, snap))
+                                 self.pool.submit(to_host, snap,
+                                                  "pose_fetch"))
 
     def collect_pose_refresh(self, block: bool = True):
         """Fold a completed background pose fetch into the host mirrors;
@@ -245,16 +242,19 @@ class SlamNode:
             else:
                 self.refresh_poses()
 
-    def _maybe_full_solve(self, k: int = 1):
-        """The periodic thorough solve every `full_solve_every` keyframes."""
+    def _maybe_full_solve(self, k: int = 1) -> bool:
+        """The periodic thorough solve every `full_solve_every` keyframes;
+        True where it ran."""
         every = self.cfg.solver.full_solve_every
         if not every:
-            return
+            return False
         self._kf_since_full_solve += k
-        if self._kf_since_full_solve >= every:
-            self._kf_since_full_solve = 0
-            with phase("periodic_full_solve"):
-                self.state = engine.solve_full(self.cfg, self.state)
+        if self._kf_since_full_solve < every:
+            return False
+        self._kf_since_full_solve = 0
+        with phase("periodic_full_solve"):
+            self.state = engine.solve_full(self.cfg, self.state)
+        return True
 
     def rebuild_mirrors(self):
         """Re-derive host mirrors after key_poses / the database were
@@ -306,18 +306,21 @@ class SlamNode:
         """inputNode.cpp:88-186 case 1/2: integrate one keyframe; returns
         the host pose estimate. odom_pose: the raw odometry pose synced
         with the observation."""
-        odom_pose, rel, pose_est = self._new_packet(stamp, odom_pose)
-        packet = packet_from_obs(stamp, pose_est, rel, obs)
-        rec = self.dbm.host_record()
-        rec.packets.append(packet)
-        self._fused_step(odom_pose, rel, packet, drop=self.is_in_lc_region)
-        self._push_own(stamp, odom_pose, pose_est)
-        rec.bookmark_fg = len(rec.packets)
-        # multi-robot: fold any pending peer keyframes (sloamNode.cpp:912-1008)
-        self.replay_peers()
-        self._map_dirty = True   # compact map refreshed lazily
-        self._maybe_full_solve()
-        self._maybe_refresh_poses()
+        with phase("kf", key=(self.robot_id, float(stamp))):
+            odom_pose, rel, pose_est = self._new_packet(stamp, odom_pose)
+            packet = packet_from_obs(stamp, pose_est, rel, obs)
+            rec = self.dbm.host_record()
+            rec.packets.append(packet)
+            self._fused_step(odom_pose, rel, packet,
+                             drop=self.is_in_lc_region)
+            self._push_own(stamp, odom_pose, pose_est)
+            rec.bookmark_fg = len(rec.packets)
+            # multi-robot: fold any pending peer keyframes
+            # (sloamNode.cpp:912-1008)
+            self.replay_peers()
+            self._map_dirty = True   # compact map refreshed lazily
+            annotate(full_solve=self._maybe_full_solve())
+            self._maybe_refresh_poses()
         return self.key_poses[-1]
 
     def _budget(self):
@@ -352,14 +355,12 @@ class SlamNode:
             drops.append(self.is_in_lc_region)
             self._push_own(stamp, odom_pose, pose_est)
         t0 = time.perf_counter()
-        self.state, _ = engine.keyframe_batch_fused(
-            self.cfg, self.state, self.robot_id, self._tensor(oar),
-            self._tensor(packed), drops, self._budget(), self._noise_odom,
-            self._noise_cube)
-        maybe_block(self.state.poses)
-        dt = time.perf_counter() - t0
-        self.fg_time.append(dt)
-        phase_add("kf_dispatch", dt)
+        with phase("kf_dispatch"):
+            self.state, _ = engine.keyframe_batch_fused(
+                self.cfg, self.state, self.robot_id, self._tensor(oar),
+                self._tensor(packed), drops, self._budget(),
+                self._noise_odom, self._noise_cube)
+        self.fg_time.append(time.perf_counter() - t0)
         rec.bookmark_fg = len(rec.packets)
         self.replay_peers()
         self._map_dirty = True
@@ -372,15 +373,13 @@ class SlamNode:
         """One device step (DA + insert + solve); nothing is read back."""
         with phase("kf_host_pack"):
             packed = self._tensor(self._pack_obs(packet))
-        odom_and_rel = self._tensor(np.stack([_np(odom_pose), _np(rel)]))
+            odom_and_rel = self._tensor(np.stack([_np(odom_pose), _np(rel)]))
         t0 = time.perf_counter()
-        self.state, self.last_step = engine.keyframe_step_fused(
-            self.cfg, self.state, self.robot_id, odom_and_rel, packed,
-            drop, self._budget(), self._noise_odom, self._noise_cube)
-        maybe_block(self.last_step.pose)
-        dt = time.perf_counter() - t0
-        self.fg_time.append(dt)
-        phase_add("kf_dispatch", dt)
+        with phase("kf_dispatch"):
+            self.state, self.last_step = engine.keyframe_step_fused(
+                self.cfg, self.state, self.robot_id, odom_and_rel, packed,
+                drop, self._budget(), self._noise_odom, self._noise_cube)
+        self.fg_time.append(time.perf_counter() - t0)
 
     # ------------------------------------------------------------------
     # Multi-robot merge (sloamNode.cpp:912-1008)
@@ -420,7 +419,6 @@ class SlamNode:
                         self.cfg, self.state, rid, self._tensor(par),
                         self._tensor(packed), self._noise_odom,
                         self._noise_cube)
-                    maybe_block(self.state.poses)
             self.data_association_time.append(time.perf_counter() - t0)
             rec.bookmark_fg = n
             self._peer_pose_count[rid] = n
@@ -432,7 +430,6 @@ class SlamNode:
                     self.state = engine.solve_full(self.cfg, self.state)
                 else:
                     self.state = engine.solve_incremental(self.cfg, self.state)
-                maybe_block(self.state.poses)
             self.fg_time.append(time.perf_counter() - t1)
             if first_fold:
                 self.request_pose_refresh()
@@ -528,7 +525,7 @@ class SlamNode:
         t0 = time.perf_counter()
         cfg = self.cfg
         base = self.robot_id * cfg.capacity.max_poses_per_robot
-        chain = _to_host(poses_snap)[base:base + latest + 1]
+        chain = to_host(poses_snap, "intra_chain")[base:base + latest + 1]
         cand = self._candidate_from_chain(cfg, chain[:, 4:7], latest)
         if cand is None:
             self.intra_lc_time.append(time.perf_counter() - t0)
@@ -821,7 +818,7 @@ class SlamNode:
     def trajectory_of(self, robot_id: int) -> np.ndarray:
         n = int(self.state.pose_count[robot_id])
         base = robot_id * self.cfg.capacity.max_poses_per_robot
-        return _to_host(self.state.poses[base:base + n])
+        return to_host(self.state.poses[base:base + n], "trajectory")
 
     def landmark_counts(self) -> Dict[str, int]:
         return {"cylinders": int(self.state.cyl_count),
@@ -830,7 +827,7 @@ class SlamNode:
 
     def overflow_report(self) -> Dict[str, int]:
         """Capacity-overflow counters (dropped appends) by family."""
-        vals = _to_host(self.state.overflow)
+        vals = to_host(self.state.overflow, "overflow")
         return {f"overflow_{name}": int(v)
                 for name, v in zip(OVERFLOW_FIELDS, vals)}
 
