@@ -28,7 +28,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..runtime.profiling import host_read, phase
+from ..runtime import cuda_graphs
+from ..runtime.profiling import annotate, host_read, phase
 from . import solver
 from .graph import GraphState
 
@@ -221,6 +222,55 @@ def _finite(x):
     return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
 
 
+def line_search(s: GraphState, dx: solver.Tangent, scales, cyl_sigma,
+                bearing_sigma, rel_tol, reduce=solver._identity):
+    """One outer iteration's backtracking line search: the cost at s and at
+    s retracted by each of `scales` [3] times dx; then s retracted by the
+    best scale where it lowers the cost, else by 0. Returns (state, more),
+    `more` a 0-d bool: the step was accepted and cut the cost by more than
+    rel_tol. No host read and no host data, so a CUDA graph can capture it
+    (`torch.take`: indexing by the 0-d `best` would read it on the host)."""
+    c0 = solver.cost(s, cyl_sigma, bearing_sigma, reduce)
+    costs = torch.stack([
+        solver.cost(solver.retract_state(s, solver.tree_scale(a, dx)),
+                    cyl_sigma, bearing_sigma, reduce) for a in scales])
+    best = torch.argmin(costs)
+    c_best = torch.take(costs, best)
+    accept = c_best < c0
+    alpha = torch.where(accept, torch.take(scales, best), torch.zeros_like(c0))
+    improved = (c0 - c_best) > rel_tol * (c0 + 1e-9)
+    return (solver.retract_state(s, solver.tree_scale(alpha, dx)),
+            accept & improved)
+
+
+def _graph_ok(device: torch.device, reduce) -> bool:
+    """The line search runs as a CUDA graph on a card in an unsharded solve;
+    a sharded one's `reduce` syncs threads or ranks, so it runs eagerly."""
+    return device.type == "cuda" and reduce is solver._identity
+
+
+def _line_search(s, dx, scales, cyl_sigma, bearing_sigma, rel_tol, reduce):
+    """`line_search`, replayed from a CUDA graph captured once per state
+    shape where `_graph_ok`, eagerly elsewhere; `ls_graph` on the
+    enclosing span says which."""
+    if not _graph_ok(s.poses.device, reduce):
+        annotate(ls_graph=0)
+        return line_search(s, dx, scales, cyl_sigma, bearing_sigma, rel_tol,
+                           reduce)
+    annotate(ls_graph=1)
+    n, m = len(s), len(dx)
+    floats = (float(cyl_sigma), float(bearing_sigma), float(rel_tol))
+
+    def fn(x):
+        new, more = line_search(GraphState(*x[:n]),
+                                solver.Tangent(*x[n:n + m]), x[-1], *floats)
+        return list(new) + [more]
+    inputs = list(s) + list(dx) + [scales]
+    key = ("line_search", tuple((t.shape, t.dtype) for t in inputs), floats)
+    out = cuda_graphs.replay("ls_graph", key, fn, inputs)
+    return GraphState(*out[:n]), out[n]
+
+
 def solve(s: GraphState, *, cyl_sigma: float, bearing_sigma: float,
           outer_iters: int, pcg_iters: int, pcg_tol: float = 1e-6,
           lam: float = 1e-6, rel_tol: float = 1e-6,
@@ -249,18 +299,10 @@ def solve(s: GraphState, *, cyl_sigma: float, bearing_sigma: float,
                 s = solver.retract_state(s, dx)
                 continue
             with phase("solve.line_search"):
-                c0 = solver.cost(s, cyl_sigma, bearing_sigma, reduce)
-                costs = torch.stack([
-                    solver.cost(
-                        solver.retract_state(s, solver.tree_scale(a, dx)),
-                        cyl_sigma, bearing_sigma, reduce) for a in scales])
-                best = torch.argmin(costs)
-                accept = costs[best] < c0
-                alpha = torch.where(accept, scales[best], torch.zeros_like(c0))
-                improved = (c0 - costs[best]) > rel_tol * (c0 + 1e-9)
-                s = solver.retract_state(s, solver.tree_scale(alpha, dx))
+                s, more = _line_search(s, dx, scales, cyl_sigma,
+                                       bearing_sigma, rel_tol, reduce)
                 with host_read("accept"):
-                    more = bool(accept & improved)
+                    more = bool(more)
             if not more:
                 break
     return s

@@ -50,8 +50,9 @@ def quat_mul(q1, q2):
 
 
 def quat_conj(q):
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    # no sign vector made from host data: its host-to-device copy waits for
+    # the card, and a CUDA graph cannot capture it (solver's line search)
+    return torch.cat([q[..., :1], -q[..., 1:4]], dim=-1)
 
 
 def quat_normalize(q):

@@ -185,6 +185,43 @@ def test_schur_solve(logged, budget):
         assert float(np.sqrt(np.mean(gap ** 2))) < ORACLE_ATE
 
 
+def _inline_line_search(s, dx, scales, cyl_sigma, bearing_sigma, rel_tol):
+    """The line search as schur.solve ran it inline before it became one
+    function (the reference the function is held to)."""
+    c0 = tsolver.cost(s, cyl_sigma, bearing_sigma)
+    costs = torch.stack([
+        tsolver.cost(tsolver.retract_state(s, tsolver.tree_scale(a, dx)),
+                     cyl_sigma, bearing_sigma) for a in scales])
+    best = torch.argmin(costs)
+    accept = costs[best] < c0
+    alpha = torch.where(accept, scales[best], torch.zeros_like(c0))
+    improved = (c0 - costs[best]) > rel_tol * (c0 + 1e-9)
+    s = tsolver.retract_state(s, tsolver.tree_scale(alpha, dx))
+    return s, accept & improved
+
+
+@pytest.mark.parametrize("direction", [1.0, -1.0])
+def test_line_search_equals_the_inline_code(logged, direction):
+    """schur.line_search returns exactly what the inline code returned, on
+    an accepted step (the PCG direction) and a rejected one (reversed):
+    every state field bit for bit, and the stop flag."""
+    _, tcfg, state = logged
+    _, s = _both(state)
+    sig = (tcfg.noise.cylinder, tcfg.noise.bearing)
+    op = tschur.build_operands(s, *sig, 1e-6)
+    dp, dl = tschur.solve_reduced(op, 1e-6, 48, 1e-6)
+    NC, NK = s.cyl_ray.shape[0], s.cub_pose.shape[0]
+    dx = tsolver.tree_scale(direction, tsolver.Tangent(
+        pose=dp, cyl=dl[:NC, :7], cub=dl[NC:NC + NK], pt=dl[NC + NK:, :3]))
+    scales = torch.tensor([1.0, 0.5, 0.25])
+    want, want_more = _inline_line_search(s, dx, scales, *sig, 1e-6)
+    got, more = tschur.line_search(s, dx, scales, *sig, 1e-6)
+    assert bool(more) is bool(want_more) is (direction > 0)
+    for f in s._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert getattr(got, f).stride() == getattr(want, f).stride(), f
+
+
 def test_pcg_blocks_equal_early_exit():
     """The blocked PCG (host reads its stop flag every PCG_BLOCK iterations,
     a device mask freezes the carry) returns exactly what a loop that stops

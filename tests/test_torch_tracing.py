@@ -172,6 +172,8 @@ def test_each_keyframe_and_scan_has_one_keyed_root(traced):
             assert s["attrs"]["host_reads"] == 1
         if s["name"] == "solve.pcg":
             assert isinstance(s["attrs"]["pcg_iters"], int)
+        if s["name"] == "solve.line_search":
+            assert s["attrs"]["ls_graph"] == 0      # eager off the card
 
 
 def test_results_are_bit_equal_with_tracing_on_and_off(scene, traced):
