@@ -26,6 +26,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .. import judge as JUDGE  # noqa: F401  (run.py judges with it)
 from ..traffic import make_traffic
 
 WARM_KEYFRAMES = 4

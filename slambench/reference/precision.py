@@ -3,7 +3,8 @@
 `exact` leaves a value as it is. `tf32` keeps 10 mantissa bits, as a
 tensor core rounds a TF32 operand, to nearest (ties away from zero), and
 returns the input's dtype, so a function that takes `rnd` computes in
-that precision wherever it rounds its operands.
+that precision wherever it rounds its operands. `bf16` keeps 7 bits the
+same way.
 """
 from __future__ import annotations
 
@@ -35,3 +36,6 @@ def _round_bits(x, drop: int):
 def tf32(x):
     return _round_bits(x, 13)
 
+
+def bf16(x):
+    return _round_bits(x, 16)

@@ -9,7 +9,9 @@ names a configuration (slambench/configs/<config>.json) and its traffic
 (slambench/workloads/<cell>.json, whose `driver` names a module of
 slambench/drivers/). Set-up makes the inputs from the seed and warms the
 cell's shapes up; the window then runs `--seconds` seconds; then the
-run's outputs are judged against the plain reference (slambench/judge.py).
+run's outputs are judged against the plain reference by the judge that
+the driver module names as `JUDGE` (the solo driver's: slambench/judge.py),
+held to the workload's `limits` by `verdict`.
 
 With --trace 0 the last line of standard output holds the cell's
 end-to-end metrics; with --trace 1 its per-layer metrics, each read by
@@ -71,13 +73,23 @@ def _applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def verdict(values: dict, limits: dict):
+    """(correct, [(name, value, limit)]) over the numbers with a limit."""
+    rows = [(k, values.get(k), lim) for k, lim in limits.items()]
+    ok = all(v is not None and v <= lim for _, v, lim in rows)
+    return ok, rows
+
+
 def run_cell(manifest: dict, cell: str, seed: int, seconds: float,
              trace: bool, device: str = "cuda", overrides=None):
     """One run of `cell`: (result line dict, [(name, value, limit)]).
-    `overrides` (tests) updates the configuration and workload dicts."""
+    `overrides` (tests) updates the configuration and workload dicts.
+    The driver module that the workload's `driver` names gives the run
+    (`Driver`) and its judge (`JUDGE`: `program_side(rec)` takes what the
+    run kept, `readings(cfg, work, traffic, side, device)` the compared
+    numbers)."""
     import numpy as np
     import torch
-    from slambench import judge
 
     wl, conf = cell_of(manifest, cell)
     cfg = load_json(ROOT, conf["file"])
@@ -104,7 +116,7 @@ def run_cell(manifest: dict, cell: str, seed: int, seconds: float,
     metrics = {}
     devinfo = {"platform": "gpu" if cuda else "cpu",
                "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
-               "count": 1, "memory_peak_bytes": int(peak)}
+               "count": int(wl["chips"]), "memory_peak_bytes": int(peak)}
     breakdown = None
     if trace:
         from slambench.yardstick import trace as tr
@@ -130,11 +142,10 @@ def run_cell(manifest: dict, cell: str, seed: int, seconds: float,
                     raise RuntimeError(f"no value for {m['name']}")
                 metrics[m["name"]] = {"value": values[m["name"]],
                                       "unit": m["unit"]}
-    rec["profiled_dbscan"] = []
+    judge = driver_mod.JUDGE
     side = judge.program_side(rec)
-    rec["capture"] = None
     values = judge.readings(cfg, work, drv.traffic, side, device)
-    correct, rows = judge.verdict(values, work["limits"])
+    correct, rows = verdict(values, work["limits"])
     line = {"correct": bool(correct), "attempted": int(n), "failed": 0,
             "metrics": metrics, "device": devinfo}
     if breakdown is not None:

@@ -23,6 +23,7 @@ def _cell(cell):
 def test_control_fails_and_program_passes(cell):
     from slambench import judge
     from slambench.drivers import solo
+    from slambench.run import verdict
     from slambench.reference import precision
     cfg, work = _cell(cell)
     drv = solo.Driver(cfg, work, 11, "cpu", False)
@@ -32,13 +33,13 @@ def test_control_fails_and_program_passes(cell):
     finally:
         drv.close()
     prog = judge.program_side(drv.rec)
-    ok, rows = judge.verdict(judge.readings(cfg, work, drv.traffic, prog,
-                                            "cpu"), work["limits"])
+    ok, rows = verdict(judge.readings(cfg, work, drv.traffic, prog, "cpu"),
+                       work["limits"])
     assert ok, rows
     side = judge.control_side(cfg, work, drv.traffic, prog, precision.tf32,
                               "cpu")
-    ok, rows = judge.verdict(judge.readings(cfg, work, drv.traffic, side,
-                                            "cpu"), work["limits"])
+    ok, rows = verdict(judge.readings(cfg, work, drv.traffic, side, "cpu"),
+                       work["limits"])
     assert not ok, rows
 
 
