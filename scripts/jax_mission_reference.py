@@ -91,7 +91,7 @@ def _trace_node_class(node_cls, sink):
         return dict(lm=self.landmark_counts(),
                     pose=[float(v) for v in self.key_poses[-1][4:7]])
 
-    def search(self, out, peers, peer_maps, ref_map):
+    def search(self, out, peers, peer_maps, ref_map, *_):
         return dict(ref=len(ref_map),
                     peers={int(p): len(peer_maps[p]) for p in peers},
                     found={int(k): [float(v) for v in t]

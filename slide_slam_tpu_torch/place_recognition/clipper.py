@@ -25,6 +25,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..runtime import profiling
+
 # line-search ticks between two host reads of the stop flag
 CLIPPER_BLOCK = 32
 
@@ -125,7 +127,9 @@ def find_dense_clique(M: torch.Tensor, u0: torch.Tensor,
 
     Returns one packed [n + 2] tensor on M's device: [u, F, omega] with
     omega = round(F) (DSD_HEU). See the module docstring for the blocked
-    form of the three loops."""
+    form of the three loops. While tracing, the ascent's iterations (inner
+    steps) are counted on the device and added to the open span's
+    `clipper_iters`."""
     p = params
     A = _Ascent(M, p)
     dev, f = M.device, M.dtype
@@ -141,6 +145,7 @@ def find_dense_clique(M: torch.Tensor, u0: torch.Tensor,
     k = torch.zeros((), **i32)        # line-search steps this inner
     active = torch.ones((), dtype=torch.bool, device=dev)
     one = torch.ones((), dtype=f, device=dev)
+    iters = torch.zeros((), **i32) if profiling.tracing() else None
     ticks = 0
     # at most maxoliters * maxiniters * maxlsiters ticks; the flag stops it
     cap = p.maxoliters * p.maxiniters * p.maxlsiters
@@ -197,10 +202,14 @@ def find_dense_clique(M: torch.Tensor, u0: torch.Tensor,
             i = torch.where(active, i_n, i)
             j = torch.where(active, j_n, j)
             k = torch.where(active, k_n, k)
+            if iters is not None:
+                iters = iters + (active & ls_end).to(torch.int32)
             active = active & ~finished
             ticks += 1
         if not bool(active):
             break
+    if iters is not None:
+        profiling.count(clipper_iters=iters)
     omega = torch.round(F)
     return torch.cat([u, F[None], omega[None]])
 

@@ -29,12 +29,18 @@ mission clock. The direct mode calls `process_keyframe` straight away
 (stamp order identical; a parity test asserts equal trajectories).
 
 Every node's graph lives on `device` ("cuda" by default; tests pass "cpu").
+
+An episode can be paused and resumed: `start` builds its events, `advance`
+runs them up to a stamp or until a stop condition holds, `finish` runs the
+rest and the finals, and `close` applies the searches still in flight and
+shuts the worker pool. `run` is `start` then `finish`; a paused and resumed
+synchronous episode equals it bit for bit.
 """
 from __future__ import annotations
 
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import time
 
@@ -90,52 +96,54 @@ class MultiRobotMission:
             self.input_managers = {
                 n.robot_id: InputManager(cfg, n, use_native=use_native_queues)
                 for n in self.nodes}
-        # pending async LC jobs: (robot_id, kind) -> Future
-        self._jobs: Dict[tuple, Future] = {}
+        # pending async LC jobs: (robot_id, kind) -> (Future, stamp)
+        self._jobs: Dict[tuple, tuple] = {}
+        # the episode's events (start) and the next one to run (advance)
+        self._events: Optional[list] = None
+        self._next = 0
 
     # ------------------------------------------------------------------
     # Async job plumbing
     # ------------------------------------------------------------------
+    def _result(self, key, block: bool):
+        """Pop one job and wait for its result; a blocking wait is the
+        `closure.wait` span."""
+        fut, stamp = self._jobs.pop(key)
+        if not block:
+            return fut.result(), stamp
+        rid, kind = key
+        with phase("closure.wait", key=(rid, stamp), kind=kind):
+            return fut.result(), stamp
+
+    def _apply(self, key, res, stamp):
+        rid, kind = key
+        with phase("intra_apply" if kind == "intra" else "inter_apply"):
+            self.by_id[rid].apply_closure(kind, res, stamp)
+
     def _drain_jobs(self, block: bool = False):
         """Apply finished worker results on the main thread (the
         reference applies LC results under the factor-graph mutex)."""
-        done = []
-        for key, fut in self._jobs.items():
-            if block or fut.done():
-                done.append(key)
+        done = [key for key, (fut, _) in self._jobs.items()
+                if block or fut.done()]
         for key in done:
-            fut = self._jobs.pop(key)
-            rid, kind = key
-            node = self.by_id[rid]
-            res = fut.result()
-            if kind == "intra":
-                with phase("intra_apply"):
-                    node._apply_intra_result(res)
-            elif kind == "inter":
-                with phase("inter_apply"):
-                    node._apply_inter_result(res)
+            self._apply(key, *self._result(key, block))
 
-    def _submit(self, rid: int, kind: str, fut: Optional[Future]):
+    def _submit(self, rid: int, kind: str, fut: Optional[Future], stamp):
         if fut is not None:
-            self._jobs[(rid, kind)] = fut
+            self._jobs[(rid, kind)] = (fut, stamp)
 
     def _finish_job(self, rid: int, kind: str):
         """Block on one node's in-flight LC job and apply its result."""
-        fut = self._jobs.pop((rid, kind), None)
-        if fut is None:
-            return
-        res = fut.result()
-        node = self.by_id[rid]
-        if kind == "intra":
-            with phase("intra_apply"):
-                node._apply_intra_result(res)
-        else:
-            with phase("inter_apply"):
-                node._apply_inter_result(res)
+        if (rid, kind) in self._jobs:
+            self._apply((rid, kind), *self._result((rid, kind), True))
 
     # ------------------------------------------------------------------
-    def run(self, intra_lc: bool = False, verbose: bool = False,
-            final_solve: bool = True) -> MissionReport:
+    # The episode: start, advance (pausable), finish, close
+    # ------------------------------------------------------------------
+    def start(self, intra_lc: bool = False, verbose: bool = False):
+        """Build the episode's events in the order they run: keyframes,
+        relative sightings, input-manager ticks, exchanges and the per-robot
+        closure and relative-factor cadences, by stamp."""
         cfg = self.cfg
         events = []   # (stamp, order, kind, payload)
         for log in self.logs:
@@ -175,66 +183,98 @@ class MultiRobotMission:
                                1.0 / cfg.rel_inter_robot_factor_frequency):
                 events.append((float(t), 5, "rel_factor", node.robot_id))
         events.sort(key=lambda e: (e[0], e[1]))
+        self._events, self._next = events, 0
+        self.t0, self.t1 = t0, t1
+        self.verbose = verbose
 
+    def advance(self, until_stamp: Optional[float] = None,
+                stop: Optional[Callable[[], bool]] = None) -> bool:
+        """Run the episode's next events in order: those stamped at or
+        before `until_stamp` (every one where None), while `stop()` (asked
+        before each event) is false. Returns whether events remain. A
+        mission paused here and advanced again runs exactly the events, in
+        the order, of one uninterrupted run; searches in flight stay in
+        flight."""
+        if self._events is None:
+            self.start()
+        events = self._events
+        while self._next < len(events):
+            stamp, _, kind, payload = events[self._next]
+            if until_stamp is not None and stamp > until_stamp:
+                break
+            if stop is not None and stop():
+                break
+            self._next += 1
+            self._event(stamp, kind, payload)
+        return self._next < len(events)
+
+    def _event(self, stamp: float, kind: str, payload):
         asyncmode = self.pool is not None
-        for stamp, _, kind, payload in events:
+        if asyncmode:
+            self._drain_jobs()
+        if kind == "keyframe":
+            rid, kf = payload
+            if self.use_input_manager:
+                self.input_managers[rid].on_observation(
+                    kf.stamp, kf.odom_pose, vars(kf))
+            else:
+                self.by_id[rid].process_keyframe(kf.stamp, kf.odom_pose,
+                                                 vars(kf))
+        elif kind == "tick":
+            for im in self.input_managers.values():
+                im.tick(stamp)
+        elif kind == "relative":
+            rid, meas = payload
+            if self.use_input_manager:
+                self.input_managers[rid].on_relative_measurement(meas)
+            elif not meas.only_use_odom:
+                self.by_id[rid].add_relative_measurement(meas)
+        elif kind == "comm":
+            self._exchange(stamp)
+        elif kind == "inter_lc":
+            n = self.by_id[payload]
             if asyncmode:
-                self._drain_jobs()
-            if kind == "keyframe":
-                rid, kf = payload
-                if self.use_input_manager:
-                    self.input_managers[rid].on_observation(
-                        kf.stamp, kf.odom_pose, vars(kf))
-                else:
-                    self.by_id[rid].process_keyframe(kf.stamp, kf.odom_pose,
-                                                     vars(kf))
-            elif kind == "tick":
-                for im in self.input_managers.values():
-                    im.tick(stamp)
-            elif kind == "relative":
-                rid, meas = payload
-                if self.use_input_manager:
-                    self.input_managers[rid].on_relative_measurement(meas)
-                elif not meas.only_use_odom:
-                    self.by_id[rid].add_relative_measurement(meas)
-            elif kind == "comm":
-                self._exchange(stamp)
-            elif kind == "inter_lc":
-                n = self.by_id[payload]
-                if asyncmode:
-                    # PACED async: the attempt cadence rides the SIM clock.
-                    # An in-flight search from the previous tick is waited
-                    # out (and applied) instead of skipping the tick — a
-                    # faster-than-realtime replay otherwise races past
-                    # every remaining tick while one search runs, starving
-                    # the closure machinery to ~1 attempt per mission.
-                    # Between ticks the search still overlaps keyframe
-                    # dispatch.
-                    self._finish_job(n.robot_id, "inter")
-                    self._submit(n.robot_id, "inter",
-                                 n.submit_inter_loop_closure())
-                else:
-                    found = n.attempt_inter_loop_closure()
-                    if found and verbose:
-                        print(f"[t={stamp:.1f}] robot {n.robot_id} found "
-                              f"TF to {found}")
-            elif kind == "intra_lc":
-                n = self.by_id[payload]
-                if asyncmode:
-                    self._finish_job(n.robot_id, "intra")
-                    self._submit(n.robot_id, "intra",
-                                 n.submit_intra_loop_closure(stamp))
-                else:
-                    n.attempt_intra_loop_closure(stamp)
-            elif kind == "rel_factor":
-                self.by_id[payload].process_relative_factors()
+                # PACED async: the attempt cadence rides the SIM clock.
+                # An in-flight search from the previous tick is waited
+                # out (and applied) instead of skipping the tick — a
+                # faster-than-realtime replay otherwise races past
+                # every remaining tick while one search runs, starving
+                # the closure machinery to ~1 attempt per mission.
+                # Between ticks the search still overlaps keyframe
+                # dispatch.
+                self._finish_job(n.robot_id, "inter")
+                self._submit(n.robot_id, "inter",
+                             n.submit_inter_loop_closure(stamp), stamp)
+            else:
+                found = n.attempt_inter_loop_closure(stamp)
+                if found and self.verbose:
+                    print(f"[t={stamp:.1f}] robot {n.robot_id} found "
+                          f"TF to {found}")
+        elif kind == "intra_lc":
+            n = self.by_id[payload]
+            if asyncmode:
+                self._finish_job(n.robot_id, "intra")
+                self._submit(n.robot_id, "intra",
+                             n.submit_intra_loop_closure(stamp), stamp)
+            else:
+                n.attempt_intra_loop_closure(stamp)
+        elif kind == "rel_factor":
+            self.by_id[payload].process_relative_factors()
 
+    def finish(self, final_solve: bool = True) -> MissionReport:
+        """Run the events left, then the episode's finals: drain the
+        workers, a last exchange, the confirmation rounds, the last folds
+        and relative factors and, where `final_solve`, one thorough solve
+        a node and its chain on the host."""
+        cfg = self.cfg
+        self.advance()
+        asyncmode = self.pool is not None
         # final flush: drain workers, then one last exchange + merge so
         # trailing keyframes that arrived after the last comm tick are
         # folded in everywhere
         if asyncmode:
             self._drain_jobs(block=True)
-        self._exchange(t1 + 10 * cfg.communication_wait_time,
+        self._exchange(self.t1 + 10 * cfg.communication_wait_time,
                        block_maps=True)
         # one final inter-LC round per required confirmation: a TF first
         # detected here must still earn its re-detection witness
@@ -243,10 +283,10 @@ class MultiRobotMission:
             for n in self.nodes:
                 if asyncmode:
                     self._submit(n.robot_id, "inter",
-                                 n.submit_inter_loop_closure())
+                                 n.submit_inter_loop_closure(), None)
                 else:
                     found = n.attempt_inter_loop_closure()
-                    if found and verbose:
+                    if found and self.verbose:
                         print(f"[final] robot {n.robot_id} found TF to "
                               f"{found}")
             if asyncmode:
@@ -283,11 +323,28 @@ class MultiRobotMission:
                     n.refresh_poses()
         return MissionReport(self.nodes)
 
+    def close(self):
+        """Wait for the searches in flight and apply them, then shut the
+        worker pool (its fetches in flight finish first). A mission may be
+        closed at any pause of `advance`; nothing runs on it afterwards."""
+        if self.pool is None:
+            return
+        self._drain_jobs(block=True)
+        self.pool.shutdown(wait=True)
+
+    def run(self, intra_lc: bool = False, verbose: bool = False,
+            final_solve: bool = True) -> MissionReport:
+        """The whole episode: start, every event, the finals."""
+        self.start(intra_lc, verbose)
+        return self.finish(final_solve)
+
     def _exchange(self, now: float, block_maps: bool = False):
         """All-to-all bundle exchange (databaseManager.cpp:219-279 + the
-        per-robot subscriptions :57-60)."""
-        with phase("comm_exchange"):
-            self._exchange_inner(now, block_maps)
+        per-robot subscriptions :57-60), the `comm.exchange` span (keyed by
+        robot id -1: the whole team)."""
+        with phase("comm_exchange"), \
+                phase("comm.exchange", key=(-1, float(now))) as span:
+            span.set(bundle_bytes=self._exchange_inner(now, block_maps))
 
     def _exchange_inner(self, now: float, block_maps: bool = False):
         communicating = [n for n in self.nodes if n.dbm.should_communicate(now)]
@@ -313,3 +370,5 @@ class MultiRobotMission:
                     continue
                 for b in bundles:
                     n.dbm.ingest_bundle(b)
+        # the bytes broadcast, by the reference's message-size model
+        return sum(n.dbm.published_mb[-1] for n in communicating) * 1e6

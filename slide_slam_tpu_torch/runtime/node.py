@@ -388,11 +388,10 @@ class SlamNode:
         """Fold pending peer keyframes into the local graph: packed on the
         host in chunks of REPLAY_CHUNK, each chunk one engine.replay_batch
         call, then ONE solve after all peers fold (thorough on a first
-        fold, when a whole history lands at once; incremental otherwise)."""
-        C = self.REPLAY_CHUNK
-        S = self.cfg.capacity.max_scan_objects
-        replayed = False
-        first_fold = False
+        fold, when a whole history lands at once; incremental otherwise).
+        The fold is the `mission.replay` span, opened only where a peer
+        has keyframes to fold."""
+        pending = []
         for rid, rec in self.dbm.records.items():
             if rid == self.robot_id:
                 continue
@@ -402,11 +401,24 @@ class SlamNode:
             n = len(rec.packets)
             if rec.bookmark_fg >= n:
                 continue
-            first_fold |= rec.bookmark_fg == 0
+            pending.append((rid, rec, tf, n))
+        if not pending:
+            return
+        first_fold = any(rec.bookmark_fg == 0 for _, rec, _, _ in pending)
+        with phase("mission.replay", key=self._key(),
+                   first_fold=int(first_fold),
+                   poses_replayed=sum(n - rec.bookmark_fg
+                                      for _, rec, _, n in pending)):
+            self._replay(pending, first_fold)
+
+    def _replay(self, pending, first_fold: bool):
+        C = self.REPLAY_CHUNK
+        S = self.cfg.capacity.max_scan_objects
+        for rid, rec, tf, n in pending:
             t0 = time.perf_counter()
-            pending = rec.packets[rec.bookmark_fg:n]
-            for lo in range(0, len(pending), C):
-                chunk = pending[lo:lo + C]
+            pending_packets = rec.packets[rec.bookmark_fg:n]
+            for lo in range(0, len(pending_packets), C):
+                chunk = pending_packets[lo:lo + C]
                 with phase("replay_pack"):
                     par = np.zeros((len(chunk), 2, 7), np.float32)
                     packed = np.zeros((len(chunk), S, 33), np.float32)
@@ -422,17 +434,22 @@ class SlamNode:
             self.data_association_time.append(time.perf_counter() - t0)
             rec.bookmark_fg = n
             self._peer_pose_count[rid] = n
-            replayed = True
-        if replayed:
-            t1 = time.perf_counter()
-            with phase("replay_solve"):
-                if first_fold:
-                    self.state = engine.solve_full(self.cfg, self.state)
-                else:
-                    self.state = engine.solve_incremental(self.cfg, self.state)
-            self.fg_time.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        with phase("replay_solve"):
             if first_fold:
-                self.request_pose_refresh()
+                self.state = engine.solve_full(self.cfg, self.state)
+            else:
+                self.state = engine.solve_incremental(self.cfg, self.state)
+        self.fg_time.append(time.perf_counter() - t1)
+        if first_fold:
+            self.request_pose_refresh()
+
+    def _key(self, stamp: Optional[float] = None) -> tuple:
+        """A span's key: (robot id, `stamp`, or else the latest keyframe's
+        stamp)."""
+        if stamp is None and self.key_stamps:
+            stamp = self.key_stamps[-1]
+        return (self.robot_id, None if stamp is None else float(stamp))
 
     # ------------------------------------------------------------------
     # Loop-closure paths
@@ -518,10 +535,19 @@ class SlamNode:
         return rows[keep]
 
     def _intra_search(self, latest: int, poses_snap: torch.Tensor,
-                      rows_dev: torch.Tensor, packet):
-        """Worker body of one intra-LC attempt: fetch the optimized chain and
-        compact map, candidate search, SlideMatch. Returns
-        (cand, latest, rel7, chain, fit) or None."""
+                      rows_dev: torch.Tensor, packet,
+                      stamp: Optional[float] = None):
+        """Worker body of one intra-LC attempt, the `closure.search` span:
+        fetch the optimized chain and compact map, candidate search,
+        SlideMatch. Returns (cand, latest, rel7, chain, fit) or None."""
+        with phase("closure.search", key=self._key(stamp),
+                   kind="slidematch_intra", peers=[self.robot_id]) as span:
+            res = self._intra_search_body(latest, poses_snap, rows_dev,
+                                          packet)
+            span.set(found=int(res is not None))
+        return res
+
+    def _intra_search_body(self, latest, poses_snap, rows_dev, packet):
         t0 = time.perf_counter()
         cfg = self.cfg
         base = self.robot_id * cfg.capacity.max_poses_per_robot
@@ -573,6 +599,20 @@ class SlamNode:
         self.request_pose_refresh()
         return True
 
+    def apply_closure(self, kind: str, res, stamp: Optional[float] = None):
+        """Apply one finished search on the main thread, as the
+        `closure.apply` span: `kind` "intra" (returns whether the closure
+        was added) or "inter" (returns the peers merged)."""
+        with phase("closure.apply", key=self._key(stamp), kind=kind) as span:
+            if kind == "intra":
+                out = self._apply_intra_result(res)
+                merged = int(out)
+            else:
+                out = self._apply_inter_result(res)
+                merged = len(out)
+            span.set(merged=merged)
+        return out
+
     def submit_intra_loop_closure(self, now: Optional[float] = None
                                   ) -> Optional[Future]:
         """Async intra-LC attempt: gate and snapshot on the main thread,
@@ -587,7 +627,7 @@ class SlamNode:
         rows_dev = engine.compact_map_rows(self.cfg, self.state, 1)
         packet = self.dbm.host_record().packets[latest]
         return self.pool.submit(self._intra_search, latest, poses_snap,
-                                rows_dev, packet)
+                                rows_dev, packet, now)
 
     def attempt_intra_loop_closure(self, now: Optional[float] = None) -> bool:
         """intraLoopClosureThread_ body (sloamNode.cpp:355-486), synchronous
@@ -604,10 +644,11 @@ class SlamNode:
             poses_snap = self._snapshot_poses()
             rows_dev = engine.compact_map_rows(self.cfg, self.state, 1)
             packet = self.dbm.host_record().packets[latest]
-            res = self._intra_search(latest, poses_snap, rows_dev, packet)
+            res = self._intra_search(latest, poses_snap, rows_dev, packet,
+                                     now)
             if res is None:
                 return False
-            ok = self._apply_intra_result(res)
+            ok = self.apply_closure("intra", res, now)
             if ok:
                 self.refresh_poses()
             return ok
@@ -652,9 +693,20 @@ class SlamNode:
                 if rid != self.robot_id and rid not in self.dbm.loop_closure_tf]
 
     def _inter_search(self, peers: List[int], peer_maps: Dict[int, np.ndarray],
-                      ref_map: np.ndarray) -> Dict[int, np.ndarray]:
-        """Worker body: SlideMatch/SlideGraph each unmatched peer's compact
-        map against ours; returns {peer: tf7}."""
+                      ref_map: np.ndarray, stamp: Optional[float] = None
+                      ) -> Dict[int, np.ndarray]:
+        """Worker body, the `closure.search` span: SlideMatch/SlideGraph
+        each unmatched peer's compact map against ours; returns
+        {peer: tf7}."""
+        kind = "slidematch_inter" if self.cfg.use_slidematch else "slidegraph"
+        with phase("closure.search", key=self._key(stamp), kind=kind,
+                   peers=list(peers)) as span:
+            found = (self._inter_search_body(peers, peer_maps, ref_map)
+                     if len(ref_map) else {})
+            span.set(found=len(found))
+        return found
+
+    def _inter_search_body(self, peers, peer_maps, ref_map):
         cfg = self.cfg
         found: Dict[int, np.ndarray] = {}
         for rid in peers:
@@ -707,22 +759,25 @@ class SlamNode:
 
     def _refine_inter_tf(self, rid: int, tf7: np.ndarray) -> np.ndarray:
         """Map-to-map ICP polish of an accepted merge TF (a few rounds of
-        re-match + LSQ re-fit on the whole compact maps)."""
-        own = self.dbm.get_robot_map(self.robot_id)
-        peer = self.dbm.get_robot_map(rid)
-        if len(own) < 5 or len(peer) < 5:
-            return tf7
-        tf_ref, n_fit, _rms = _icp_refine(
-            se3np.matrix(np.asarray(tf7, np.float32)), own, peer,
-            self.cfg.place_recognition, iters=4)
-        if n_fit < 5:
-            return tf7
-        return se3np.from_matrix(tf_ref)
+        re-match + LSQ re-fit on the whole compact maps), the
+        `closure.polish` span."""
+        with phase("closure.polish", peer=int(rid)):
+            own = self.dbm.get_robot_map(self.robot_id)
+            peer = self.dbm.get_robot_map(rid)
+            if len(own) < 5 or len(peer) < 5:
+                return tf7
+            tf_ref, n_fit, _rms = _icp_refine(
+                se3np.matrix(np.asarray(tf7, np.float32)), own, peer,
+                self.cfg.place_recognition, iters=4)
+            if n_fit < 5:
+                return tf7
+            return se3np.from_matrix(tf_ref)
 
-    def submit_inter_loop_closure(self) -> Optional[Future]:
+    def submit_inter_loop_closure(self, stamp: Optional[float] = None
+                                  ) -> Optional[Future]:
         """Async inter-LC attempt (the reference's interLoopClosureThread_).
         The own-map fetch rides inside the same worker job; peer maps are
-        captured by reference (immutable arrays)."""
+        captured by reference (immutable arrays). `stamp` keys its span."""
         peers = self._inter_peers()
         if not peers:
             return None
@@ -737,14 +792,14 @@ class SlamNode:
         def job():
             if rows_dev is not None:
                 self.dbm.update_robot_map(_filter_compact_rows(rows_dev))
-            ref_map = self.dbm.get_robot_map(self.robot_id)
-            if len(ref_map) == 0:
-                return {}
-            return self._inter_search(peers, peer_maps, ref_map)
+            return self._inter_search(peers, peer_maps,
+                                      self.dbm.get_robot_map(self.robot_id),
+                                      stamp)
 
         return self.pool.submit(job)
 
-    def attempt_inter_loop_closure(self) -> List[int]:
+    def attempt_inter_loop_closure(self, stamp: Optional[float] = None
+                                   ) -> List[int]:
         """interLoopClosureThread_ body (sloamNode.cpp:578-697), synchronous
         form. Returns ids of peers whose TF was accepted this attempt."""
         with phase("inter_lc"):
@@ -761,8 +816,8 @@ class SlamNode:
                 found = self._inter_search(
                     peers, ref_map=ref_map,
                     peer_maps={rid: self.dbm.get_robot_map(rid)
-                               for rid in peers})
-            return self._apply_inter_result(found)
+                               for rid in peers}, stamp=stamp)
+            return self.apply_closure("inter", found, stamp)
 
     def add_loop_closure_factor(self, prev_idx: int, robot1: int,
                                 cur_idx: int, robot2: int, rel: np.ndarray,

@@ -33,6 +33,13 @@ Counters are span attributes: `host_reads` (1 on each `sync.<site>` span
 that `host_read` or `to_host` opens), `pcg_iters` (solver.pcg's device
 iteration counter, kept as a tensor and read back only by `spans()`: no
 launch and no sync while the program runs) and `full_solve` on `kf`.
+The team's spans (families `closure`, `mission`, `comm`) carry theirs:
+`closure.search` (a search on its worker thread) `kind`, `peers`, `found`
+and `clipper_iters` (CLIPPER's ascent iterations, a device tensor like
+`pcg_iters`, added by `count` while tracing); `closure.apply` `kind` and
+`merged`; `mission.replay` `poses_replayed` and `first_fold`;
+`comm.exchange` `bundle_bytes`. `closure.wait` and `closure.polish`
+carry none but their key.
 
 The tracer never opens a `torch.profiler.record_function` range: the
 profiler would put it on the CUDA timeline beside the kernels, where the
@@ -51,7 +58,8 @@ import torch
 _ACC: Dict[str, float] = defaultdict(float)
 _CNT: Dict[str, int] = defaultdict(int)
 
-SPAN_FAMILIES = frozenset(("kf", "scan", "step", "solve", "pcg", "sync"))
+SPAN_FAMILIES = frozenset(("kf", "scan", "step", "solve", "pcg", "sync",
+                           "closure", "mission", "comm"))
 CAPACITY = 65536
 
 _explicit = False
@@ -73,7 +81,8 @@ def disable():
     _explicit = False
 
 
-def _tracing() -> bool:
+def tracing() -> bool:
+    """Whether spans are recorded on this thread now."""
     return _explicit or torch.autograd._profiler_enabled()
 
 
@@ -99,7 +108,7 @@ class phase:
         self.name, self.key, self.attrs = name, key, attrs
 
     def __enter__(self):
-        self.span = _open(self.name, self.key, self.attrs) if _tracing() \
+        self.span = _open(self.name, self.key, self.attrs) if tracing() \
             else None
         self.total = self.name.split(".", 1)[0] not in SPAN_FAMILIES
         if self.total:
@@ -113,6 +122,11 @@ class phase:
         if self.span is not None:
             _close(self.span)
         return False
+
+    def set(self, **attrs):
+        """Set attributes on this block's own span, if it is recorded."""
+        if self.span is not None:
+            self.span.attrs.update(attrs)
 
 
 def host_read(site: str) -> phase:
@@ -132,6 +146,16 @@ def annotate(**attrs):
     st = getattr(_local, "stack", None)
     if st:
         st[-1].attrs.update(attrs)
+
+
+def count(**counts):
+    """Add to counters on this thread's innermost open span, if tracing; a
+    tensor stays on its device until spans() reads it."""
+    st = getattr(_local, "stack", None)
+    if st:
+        a = st[-1].attrs
+        for k, v in counts.items():
+            a[k] = a[k] + v if k in a else v
 
 
 def _open(name, key, attrs) -> _Span:
