@@ -195,6 +195,13 @@ def s_matvec(op: SchurOperands, x, lam, reduce=solver._identity):
     return _project(op.frozen, hx)
 
 
+def _preconditioner(prec):
+    """M^-1 r: the block-Jacobi inverses [RP, 6, 6] or the scalar [RP, 6]."""
+    if prec.ndim == 3:
+        return lambda r: _bmv(prec, r)
+    return lambda r: r * prec
+
+
 def solve_reduced(op: SchurOperands, lam, pcg_iters, pcg_tol, step_tol=0.0,
                   reduce=solver._identity):
     """PCG on the reduced pose system; returns (dp [RP,6], dl [NL,9]): dp
@@ -206,16 +213,96 @@ def solve_reduced(op: SchurOperands, lam, pcg_iters, pcg_tol, step_tol=0.0,
     b = reduce(-op.g_p + _scatter_rows(op.pidx, _bmv(op.A, w0[op.lidx]), RP))
     b = _project(op.frozen, b)
     if op.prec_inv.shape[0]:
-        precond = lambda r: _bmv(op.prec_inv, r)
+        prec = op.prec_inv
     else:
-        scalar = 1.0 / (op.diag_p * (1.0 + lam) + 1e-8)
-        precond = lambda r: r * scalar
-    dp = solver.pcg(lambda x: s_matvec(op, x, lam, reduce), b, precond,
-                    pcg_iters, pcg_tol, step_tol)
+        prec = 1.0 / (op.diag_p * (1.0 + lam) + 1e-8)
+    dp = _pcg(op, prec, b, lam, pcg_iters, pcg_tol, step_tol, reduce)
     hlp_dp = _scatter_rows(op.lidx, _bmtv(op.A, dp[op.pidx]), NL)
     dl = _bmv(op.Hll_inv, -op.g_l - hlp_dp)
     dl = torch.where(op.lm_active[:, None], dl, torch.zeros_like(dl))
     return dp, dl
+
+
+def _pcg(op, prec, b, lam, max_iters, tol, step_tol, reduce):
+    """solver.pcg on S dp = b, its blocks replayed from a CUDA graph where
+    `_graph_ok`, eagerly elsewhere; `pcg_graph` on the `solve.pcg` span
+    says which."""
+    if _graph_ok(b.device, reduce):
+        return _pcg_graphed(op, prec, b, lam, max_iters, tol, step_tol)
+    return solver.pcg(lambda x: s_matvec(op, x, lam, reduce), b,
+                      _preconditioner(prec), max_iters, tol, step_tol)
+
+
+# what s_matvec reads of SchurOperands; with the preconditioner, the
+# operands a graphed PCG block takes
+_MATVEC_FIELDS = ("A", "pidx", "lidx", "Hll_inv", "od_Ji", "od_Jj", "bf_Ji",
+                  "bf_Jj", "bidx", "Dp", "diag_p", "frozen")
+
+
+def _matvec_operands(ts) -> SchurOperands:
+    """SchurOperands holding `ts` in `_MATVEC_FIELDS`, None elsewhere."""
+    return SchurOperands(**{**dict.fromkeys(SchurOperands._fields),
+                            **dict(zip(_MATVEC_FIELDS, ts))})
+
+
+def pcg_block(n: int, lam: float, max_iters: int, step_tol: float):
+    """The function a CUDA graph captures for a block of `n` PCG iterations
+    on the reduced system: inputs the operands (`_MATVEC_FIELDS`, then the
+    preconditioner), the carry (solver.PcgCarry's fields) and the stop
+    threshold; it writes the next carry over its input carry and returns
+    [more], the block's stop test. No host read and no host data."""
+    m = len(_MATVEC_FIELDS)
+
+    def fn(x):
+        op = _matvec_operands(x[:m])
+        carry = solver.PcgCarry(*x[m + 1:-1])
+        thresh = x[-1]
+        hv = lambda v: s_matvec(op, v, lam)
+        precond = _preconditioner(x[m])
+        zero = torch.zeros_like(thresh)
+        c = carry
+        for _ in range(n):
+            c = solver.pcg_step(c, thresh, zero, hv, precond, max_iters,
+                                step_tol)
+        torch._foreach_copy_(list(carry[:5]), list(c[:5]))   # float carry
+        torch._foreach_copy_(list(carry[5:]), list(c[5:]))   # int32 counts
+        return [solver.pcg_more(c, thresh, max_iters)]
+    return fn
+
+
+def _pcg_graphed(op, prec, b, lam, max_iters, tol, step_tol):
+    """solver.pcg, each block of PCG_BLOCK iterations one replay of a CUDA
+    graph captured once per key (the inputs' shapes and dtypes, the block's
+    length, lam, max_iters, step_tol): the operands and the carry are
+    copied into the graph's buffers once, the carry stays there between
+    blocks, and the host reads the stop flag once a block, as eagerly. A
+    last block shorter than PCG_BLOCK has a graph of its own."""
+    with phase("solve.pcg"):
+        annotate(pcg_graph=1)
+        carry = solver.pcg_start(b, _preconditioner(prec))
+        thresh = solver.pcg_threshold(carry.rz, tol)
+        operands = [getattr(op, f) for f in _MATVEC_FIELDS] + [prec]
+        nums = (float(lam), int(max_iters), float(step_tol))
+        full, rest = divmod(int(max_iters), solver.PCG_BLOCK)
+        more = True
+        for n, blocks in ((solver.PCG_BLOCK, full), (rest, int(rest > 0))):
+            if not (more and blocks):
+                continue
+            inputs = operands + list(carry) + [thresh]
+            key = ("pcg_block", n, nums,
+                   tuple((t.shape, t.dtype) for t in inputs))
+            with cuda_graphs.bound("pcg_graph", key, pcg_block(n, *nums),
+                                   inputs) as g:
+                for _ in range(blocks):
+                    with phase("pcg.block"):
+                        flag, = g.replay()
+                        with host_read("pcg_stop"):
+                            more = bool(flag)
+                    if not more:
+                        break
+                carry = solver.PcgCarry(*g.take(g.inputs[len(operands):-1]))
+        annotate(pcg_iters=carry.k)
+    return carry.x
 
 
 def _finite(x):
@@ -244,8 +331,9 @@ def line_search(s: GraphState, dx: solver.Tangent, scales, cyl_sigma,
 
 
 def _graph_ok(device: torch.device, reduce) -> bool:
-    """The line search runs as a CUDA graph on a card in an unsharded solve;
-    a sharded one's `reduce` syncs threads or ranks, so it runs eagerly."""
+    """The PCG blocks and the line search run as CUDA graphs on a card in an
+    unsharded solve; a sharded one's `reduce` syncs threads or ranks, so
+    they run eagerly."""
     return device.type == "cuda" and reduce is solver._identity
 
 
@@ -282,8 +370,7 @@ def solve(s: GraphState, *, cyl_sigma: float, bearing_sigma: float,
     landmarks and their factors local per shard)."""
     NC = s.cyl_ray.shape[0]
     NK = s.cub_pose.shape[0]
-    scales = torch.tensor([1.0, 0.5, 0.25], dtype=s.poses.dtype,
-                          device=s.poses.device)
+    scales = solver.line_search_scales(s.poses.device, s.poses.dtype)
     with phase("solve"):
         for _ in range(int(outer_iters)):
             with phase("solve.build"):

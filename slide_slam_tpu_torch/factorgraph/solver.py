@@ -231,6 +231,19 @@ def cost(s: GraphState, cyl_sigma, bearing_sigma,
                          + torch.sum(uf ** 2)))
 
 
+_SCALES = {}
+
+
+def line_search_scales(device, dtype) -> torch.Tensor:
+    """The backtracking line search's step scales [1, 0.5, 0.25], made once
+    per device and dtype: no host-to-device copy on each solve."""
+    t = _SCALES.get((device, dtype))
+    if t is None:
+        t = _SCALES[(device, dtype)] = torch.tensor(
+            [1.0, 0.5, 0.25], dtype=dtype, device=device)
+    return t
+
+
 def retract_state(s: GraphState, dx: Tangent) -> GraphState:
     dx = _project(s, dx)
     pv = s.pose_valid()[:, None]
@@ -253,6 +266,75 @@ def _vdot(a, b):
     return torch.sum(a * b)
 
 
+def _f32_square(v: float) -> float:
+    """v * v in float32, as a Python float (exact in float32)."""
+    return float(np.float32(v) * np.float32(v))
+
+
+class PcgCarry(NamedTuple):
+    """The PCG loop's state between two iterations."""
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor     # 0-d; 0 once a stop test has fired
+    k: torch.Tensor      # 0-d int32: iterations run
+    small: torch.Tensor  # 0-d int32: consecutive Krylov steps below step_tol
+
+
+def pcg_threshold(rz: torch.Tensor, tol: float) -> torch.Tensor:
+    """tol^2 rz (rz clamped to 1e-30), tol squared in float32: no host data
+    reaches the device."""
+    return torch.clamp(rz, min=1e-30) * _f32_square(tol)
+
+
+def pcg_start(b: torch.Tensor, precond_apply):
+    """The carry before the first iteration of H x = b from x = 0."""
+    z = precond_apply(b)
+    i0 = lambda: torch.zeros((), dtype=torch.int32, device=b.device)
+    return PcgCarry(x=torch.zeros_like(b), r=b, z=z, p=z, rz=_vdot(b, z),
+                    k=i0(), small=i0())
+
+
+def pcg_step(c: PcgCarry, thresh, zero, hv_fn, precond_apply,
+             max_iters: int, step_tol: float) -> PcgCarry:
+    """One PCG iteration, a pure function of tensors (`zero` a 0-d zero of
+    b's dtype): the carry is frozen once the loop would have stopped.
+    `pcg` runs it eagerly; the Schur solve also replays blocks of it from
+    a CUDA graph (schur._pcg_graphed)."""
+    x, r, z, p, rz, k, small = c
+    active = (k < max_iters) & (rz > thresh)
+    hp = hv_fn(p)
+    php = _vdot(p, hp)
+    pp = _vdot(p, p)
+    curv_ok = php > 1e-12 * pp
+    alpha = torch.where(curv_ok, rz / torch.clamp(php, min=1e-30), zero)
+    step_sq = (alpha * alpha) * pp
+    x_n = x + alpha * p
+    r_n = r - alpha * hp
+    z_n = precond_apply(r_n)
+    rz_new = _vdot(r_n, z_n)
+    beta = torch.where(curv_ok, rz_new / torch.clamp(rz, min=1e-30), zero)
+    p_n = z_n + beta * p
+    # squared in float32, as the JAX version squares its f32 step_tol
+    step_small = (step_tol > 0.0) & (step_sq < _f32_square(step_tol))
+    small_n = torch.where(step_small, small + 1, 0)
+    stop = (~curv_ok) | (small_n >= 3)
+    rz_n = torch.where(stop, zero, rz_new)
+    return PcgCarry(x=torch.where(active, x_n, x),
+                    r=torch.where(active, r_n, r),
+                    z=torch.where(active, z_n, z),
+                    p=torch.where(active, p_n, p),
+                    rz=torch.where(active, rz_n, rz),
+                    k=k + active.to(torch.int32),
+                    small=torch.where(active, small_n, small))
+
+
+def pcg_more(c: PcgCarry, thresh, max_iters: int) -> torch.Tensor:
+    """0-d bool: another iteration would run."""
+    return (c.k < max_iters) & (c.rz > thresh)
+
+
 def pcg(hv_fn, b: torch.Tensor, precond_apply, max_iters: int, tol: float,
         step_tol: float = 0.0) -> torch.Tensor:
     """Solve H x = b; `precond_apply(r) -> z` applies M^-1.
@@ -261,59 +343,27 @@ def pcg(hv_fn, b: torch.Tensor, precond_apply, max_iters: int, tol: float,
     three consecutive Krylov steps below `step_tol` (0 disables), relative
     residual stop `rz <= tol^2 rz0`, at most `max_iters` iterations. The
     stop test runs on the device; the host reads it once per PCG_BLOCK
-    iterations."""
+    iterations. `pcg_graph` 0 on the span: every kernel is launched from
+    here."""
     with phase("solve.pcg"):
-        x = torch.zeros_like(b)
-        r = b
-        z = precond_apply(r)
-        p = z
-        rz = _vdot(r, z)
-        tol_t = torch.tensor(tol, dtype=b.dtype, device=b.device)
-        thresh = tol_t * tol_t * torch.clamp(rz, min=1e-30)
-        k = torch.zeros((), dtype=torch.int32, device=b.device)
-        small = torch.zeros((), dtype=torch.int32, device=b.device)
+        annotate(pcg_graph=0)
+        c = pcg_start(b, precond_apply)
+        thresh = pcg_threshold(c.rz, tol)
         zero = torch.zeros((), dtype=b.dtype, device=b.device)
-        # squared in float32, as the JAX version squares its f32 step_tol
-        step_tol_sq = float(np.float32(step_tol) * np.float32(step_tol))
         done_iters = 0
         while done_iters < max_iters:
             with phase("pcg.block"):
                 for _ in range(min(PCG_BLOCK, max_iters - done_iters)):
-                    active = (k < max_iters) & (rz > thresh)
-                    hp = hv_fn(p)
-                    php = _vdot(p, hp)
-                    pp = _vdot(p, p)
-                    curv_ok = php > 1e-12 * pp
-                    alpha = torch.where(curv_ok,
-                                        rz / torch.clamp(php, min=1e-30), zero)
-                    step_sq = (alpha * alpha) * pp
-                    x_n = x + alpha * p
-                    r_n = r - alpha * hp
-                    z_n = precond_apply(r_n)
-                    rz_new = _vdot(r_n, z_n)
-                    beta = torch.where(curv_ok,
-                                       rz_new / torch.clamp(rz, min=1e-30),
-                                       zero)
-                    p_n = z_n + beta * p
-                    step_small = (step_tol > 0.0) & (step_sq < step_tol_sq)
-                    small_n = torch.where(step_small, small + 1, 0)
-                    stop = (~curv_ok) | (small_n >= 3)
-                    rz_n = torch.where(stop, zero, rz_new)
-                    x = torch.where(active, x_n, x)
-                    r = torch.where(active, r_n, r)
-                    z = torch.where(active, z_n, z)
-                    p = torch.where(active, p_n, p)
-                    rz = torch.where(active, rz_n, rz)
-                    small = torch.where(active, small_n, small)
-                    k = k + active.to(torch.int32)
+                    c = pcg_step(c, thresh, zero, hv_fn, precond_apply,
+                                 max_iters, step_tol)
                     done_iters += 1
                 with host_read("pcg_stop"):
-                    more = bool((k < max_iters) & (rz > thresh))
+                    more = bool(pcg_more(c, thresh, max_iters))
             if not more:
                 break
         # the device counter itself: read back only when spans are exported
-        annotate(pcg_iters=k)
-    return x
+        annotate(pcg_iters=c.k)
+    return c.x
 
 
 # ---------------------------------------------------------------------------
@@ -442,8 +492,7 @@ def solve(s: GraphState, *, cyl_sigma: float, bearing_sigma: float,
     the host once per iteration. `reduce` sums over the shards of a
     factor-sharded solve (parallel/distributed_ba.py)."""
     idx = pack_indices(s)
-    scales = torch.tensor([1.0, 0.5, 0.25], dtype=s.poses.dtype,
-                          device=s.poses.device)
+    scales = line_search_scales(s.poses.device, s.poses.dtype)
     with phase("solve"):
         for _ in range(int(outer_iters)):
             with phase("solve.build"):

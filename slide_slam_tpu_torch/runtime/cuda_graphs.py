@@ -16,8 +16,9 @@ changes, from one launch a kernel to one a graph.
 0-d tensor), no tensor made from host data, no data-dependent shape, and
 everything it reads passed in `inputs` (Python numbers it closes over are
 baked into the graph, so they belong in the key). The key must hold every
-shape and dtype of `inputs`; `replay` adds the device and the float32
-matmul settings, which decide the kernels captured.
+shape and dtype of `inputs`; `replay` adds the device, the float32
+matmul settings and whether deterministic algorithms are on, which
+decide the kernels captured.
 
 Every returned tensor is fresh memory, never a graph-owned buffer: a later
 replay rewrites nothing a caller holds. An output that is one of `fn`'s
@@ -27,9 +28,27 @@ copy-in, replay, copy-out sequence, so threads may share a card (a graph's
 buffers are reused only after the last user's copy-out on its stream).
 Each capture adds to the phase total `<name>_capture`
 (`profiling.phase_counts()`).
+
+A loop whose body is graphed replays one graph many times over a carry
+that stays in the graph's buffers:
+
+    with cuda_graphs.bound("pcg_graph", key, fn, inputs) as g:
+        while ...:
+            outs = g.replay()            # the graph's own output buffers
+            ...                          # a host read of outs, say
+        kept = g.take(g.inputs[i:j])     # fresh copies
+
+copies the inputs in once, on entry (after a capture too: its eager run
+may have moved them); `fn` may write into its inputs in place (the loop's
+carry), and each replay starts from what the last one left there.
+`g.replay()` returns the graph's own buffers and `g.inputs` are its input
+buffers: read them inside the block, and keep only what `g.take` copies
+out, so fresh memory still leaves the graph. The lock is held for the
+whole block, so no other thread replays any graph meanwhile.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, Dict, List
 
@@ -96,26 +115,81 @@ def _capture(fn, inputs, stream) -> _Graph:
     return e
 
 
+def _checkout(name: str, key, fn, inputs, stream):
+    """(entry, captured now): the graph under `key`, captured on first use,
+    its buffers free for `stream`. Called under the lock."""
+    e = _GRAPHS.get(key)
+    if e is None:
+        with phase(name + "_capture"):
+            e = _GRAPHS[key] = _capture(fn, inputs, stream)
+        return e, True
+    stream.wait_event(e.done)
+    return e, False
+
+
+def _outputs(e: _Graph, static_in, static_out):
+    it = iter(static_out)
+    return [next(it) if i is None else static_in[i] for i in e.passthrough]
+
+
+def _fresh(ts: List[torch.Tensor]) -> List[torch.Tensor]:
+    out = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device) for t in ts]
+    _copy(out, ts)
+    return out
+
+
+def _full_key(key, dev):
+    """The caller's key plus what else decides the kernels captured."""
+    return (key, dev, torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision(),
+            torch.are_deterministic_algorithms_enabled())
+
+
 def replay(name: str, key, fn: Callable[[List[torch.Tensor]],
                                          List[torch.Tensor]],
            inputs: List[torch.Tensor]) -> List[torch.Tensor]:
     """`fn(inputs)` through the CUDA graph cached under `key` (see above)."""
     dev = inputs[0].device
-    key = (key, dev, torch.backends.cuda.matmul.allow_tf32,
-           torch.get_float32_matmul_precision())
     stream = torch.cuda.current_stream(dev)
     with _LOCK:
-        e = _GRAPHS.get(key)
-        if e is None:
-            with phase(name + "_capture"):
-                e = _GRAPHS[key] = _capture(fn, inputs, stream)
-        else:
-            stream.wait_event(e.done)
+        e, captured = _checkout(name, _full_key(key, dev), fn, inputs,
+                                stream)
+        if not captured:
             _copy(e.static_in, inputs)
         e.graph.replay()
-        fresh = [torch.empty_strided(o.shape, o.stride(), dtype=o.dtype,
-                                     device=o.device) for o in e.static_out]
-        _copy(fresh, e.static_out)
+        fresh = _fresh(e.static_out)
         e.done.record(stream)
-    it = iter(fresh)
-    return [next(it) if i is None else inputs[i] for i in e.passthrough]
+    return _outputs(e, inputs, fresh)
+
+
+class _Bound:
+    """The handle `bound` yields (see above)."""
+    __slots__ = ("_e", "inputs")
+
+    def __init__(self, e: _Graph):
+        self._e, self.inputs = e, e.static_in
+
+    def replay(self) -> List[torch.Tensor]:
+        self._e.graph.replay()
+        return _outputs(self._e, self.inputs, self._e.static_out)
+
+    def take(self, ts: List[torch.Tensor]) -> List[torch.Tensor]:
+        return _fresh(list(ts))
+
+
+@contextlib.contextmanager
+def bound(name: str, key, fn: Callable[[List[torch.Tensor]],
+                                       List[torch.Tensor]],
+          inputs: List[torch.Tensor]):
+    """The graph cached under `key`, with `inputs` copied in once, replayed
+    as often as the block asks (see above)."""
+    dev = inputs[0].device
+    stream = torch.cuda.current_stream(dev)
+    with _LOCK:
+        e, _ = _checkout(name, _full_key(key, dev), fn, inputs, stream)
+        _copy(e.static_in, inputs)
+        try:
+            yield _Bound(e)
+        finally:
+            e.done.record(stream)

@@ -245,6 +245,22 @@ def test_pcg_blocks_equal_early_exit():
         tsolver.PCG_BLOCK = old
 
 
+@pytest.mark.parametrize("tol", [1e-3, 1e-6, 1e-8])
+def test_pcg_threshold_needs_no_host_tensor(tol):
+    """pcg_threshold (tol squared in float32 as a Python number) equals the
+    threshold it replaced, tol_t * tol_t * clamp(rz) with tol_t a tensor
+    made from host data, bit for bit: over rz from 1e-38 to 1e30 and 0."""
+    g = torch.Generator().manual_seed(0)
+    rz = torch.cat([torch.zeros(1), 10.0 ** (torch.rand(20000, generator=g)
+                                             * 68.0 - 38.0)])
+    tol_t = torch.tensor(tol, dtype=rz.dtype)
+    want = tol_t * tol_t * torch.clamp(rz, min=1e-30)
+    for got in (tsolver.pcg_threshold(rz, tol),
+                torch.stack([tsolver.pcg_threshold(v, tol) for v in rz[:64]])):
+        assert torch.equal(got.view(torch.int32),
+                           want[:got.shape[0]].view(torch.int32))
+
+
 def test_tangent_helpers_match_jax():
     """tangent_zeros, tree_dot, tree_axpy and tree_scale on the same
     tangents as the JAX package's pytree helpers (f32, to 1e-5)."""
